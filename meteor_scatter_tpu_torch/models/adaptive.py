@@ -1,0 +1,191 @@
+"""Adaptive-threshold detector with post-detection freeze.
+
+Counterpart of `meteor_scatter_tpu/models/adaptive.py` (reference:
+`dsp/src/main.py:450-522`, ``get_detections_adaptive``).  Per block i:
+
+* first ``fixed_init`` seconds: threshold = global mean + k·global std
+  (population std over the *whole* series);
+* else if i > freeze_until: threshold = mean + k·std over the trailing
+  window ``delta[max(0, i-W) : i]`` (current block excluded);
+* else: threshold keeps its previous value (frozen);
+* any above-threshold block sets
+  ``freeze_until = max(i + freeze_after, max(0, i - freeze_before))``.
+
+Two solvers, both giving the same above mask:
+
+* ``"parallel"`` — :func:`adaptive_thresholds_parallel`, the fixpoint
+  iteration in plain PyTorch, then :func:`events_from_mask`;
+* ``"fused"`` — the fused solver of
+  :mod:`meteor_scatter_tpu_torch.ops.kernels.adaptive_kernel` (the CUDA
+  kernel on a GPU, its plain twin on the CPU), chunked exactly beyond
+  ``MAX_FUSED_BLOCKS``, then :func:`events_from_run_sums`.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from meteor_scatter_tpu_torch.models.events import (
+    Events,
+    events_from_mask,
+    events_from_run_sums,
+    merge_adjacent,
+    truncate_events,
+)
+from meteor_scatter_tpu_torch.ops.kernels import adaptive_kernel as ak
+
+
+def adaptive_thresholds_parallel(
+    delta: torch.Tensor,
+    threshold_std_factor: float,
+    window_blocks: int,
+    freeze_blocks_before: int,
+    freeze_blocks_after: int,
+    fixed_threshold_blocks: int,
+    max_rounds: int | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential-scan-free adaptive detector via fixpoint iteration.
+
+    Given a *candidate* set of above-threshold blocks, the whole threshold
+    series has a closed vector form —
+
+      freeze_until_i = cummax_{j<=i}( above_j ? max(j+fa, max(0, j-fb)) : -1 )
+      updatable_i    = (i > freeze_until_{i-1}) & (i >= fixed_blocks)
+      thr_i          = windowed[ last updatable index <= i ]   (gather)
+
+    — so we iterate: thresholds from candidate detections → detections from
+    thresholds, until the detection set is stationary.  A stationary point
+    equals the sequential solution (after round k the solution is exact up
+    to the k-th freeze episode).
+
+    Returns (thresholds, above) in ``delta``'s dtype and device.
+    """
+    dtype = delta.dtype
+    n = delta.shape[0]
+    w = window_blocks
+    if max_rounds is None:
+        max_rounds = n
+
+    fixed_thr = (delta.mean() + threshold_std_factor * delta.std(correction=0)).to(dtype)
+
+    # rolling-window stats (current block excluded) via prefix sums
+    zero = delta.new_zeros(1)
+    cs = torch.cat([zero, torch.cumsum(delta, 0)])
+    cs2 = torch.cat([zero, torch.cumsum(delta * delta, 0)])
+    i = torch.arange(n, device=delta.device)
+    lo = torch.clamp(i - w, min=0)
+    cnt = (i - lo).to(dtype)
+    safe = torch.clamp(cnt, min=1)
+    m = (cs[i] - cs[lo]) / safe
+    m2 = (cs2[i] - cs2[lo]) / safe
+    std = torch.sqrt(torch.clamp(m2 - m * m, min=0))
+    # cnt==0 only at block 0: the sequential scan computes 0+k*0 = 0 there
+    windowed = torch.where(cnt > 0, m + threshold_std_factor * std, 0.0)
+
+    new_freeze = torch.maximum(i + freeze_blocks_after, torch.clamp(i - freeze_blocks_before, min=0))
+    in_fixed = i < fixed_threshold_blocks
+
+    def thresholds_from(above):
+        f = torch.where(above, new_freeze, -1)
+        freeze_until = torch.cummax(f, 0).values  # state after block i
+        freeze_prev = torch.cat([f.new_full((1,), -1), freeze_until[:-1]])
+        updatable = (i > freeze_prev) & ~in_fixed
+        last_upd = torch.cummax(torch.where(updatable, i, -1), 0).values
+        frozen = torch.where(last_upd >= 0, windowed[last_upd.clamp(min=0)], fixed_thr)
+        return torch.where(in_fixed, fixed_thr, frozen).to(dtype)
+
+    above = delta > thresholds_from(torch.zeros(n, dtype=torch.bool, device=delta.device))
+    changed = bool(above.any())
+    rounds = 1
+    while changed and rounds < max_rounds:
+        new = delta > thresholds_from(above)
+        changed = bool((new != above).any())
+        above = new
+        rounds += 1
+    thr = thresholds_from(above)
+    return thr, delta > thr
+
+
+def detect_adaptive(
+    delta: torch.Tensor,
+    threshold_std_factor: float,
+    block_duration_sec: float,
+    threshold_estimation_window_sec: float = 120.0,
+    threshold_freeze_before_detection_sec: float = 3.0,
+    threshold_freeze_after_detection_sec: float = 20.0,
+    threshold_fixed_init_duration_sec: float = 10.0,
+    cap: int = 4096,
+    impl: str = "auto",
+) -> Tuple[Events, torch.Tensor]:
+    """Full-series adaptive detection: (events, per-block thresholds).
+
+    Block→seconds conversion (`main.py:503-505`): t_start = start·bd,
+    t_stop = (last+1)·bd, dB mean over [start, last+1).
+
+    ``impl``: "parallel" (fixpoint in plain PyTorch), "fused" (the fused
+    solver — the CUDA kernel for a CUDA tensor, its plain twin for a CPU
+    one; same above mask, thresholds within f32 reduction-order noise;
+    series beyond ``MAX_FUSED_BLOCKS`` run as exact sequential chunks), or
+    "auto" (fused for a CUDA tensor, parallel for a CPU one).
+    """
+    bd = block_duration_sec
+    kw = dict(
+        threshold_std_factor=threshold_std_factor,
+        window_blocks=int(threshold_estimation_window_sec / bd),
+        freeze_blocks_before=int(threshold_freeze_before_detection_sec / bd),
+        freeze_blocks_after=int(threshold_freeze_after_detection_sec / bd),
+        fixed_threshold_blocks=int(threshold_fixed_init_duration_sec / bd),
+    )
+    if impl == "auto":
+        impl = "fused" if delta.is_cuda else "parallel"
+    if impl == "fused":
+        return _detect_adaptive_fused(delta, cap, **kw)
+    if impl == "parallel":
+        thresholds, above = adaptive_thresholds_parallel(delta, **kw)
+        return events_from_mask(above, delta, cap), thresholds
+    raise ValueError(f"unknown adaptive solver impl {impl!r} (auto, fused or parallel)")
+
+
+def _detect_adaptive_fused(delta: torch.Tensor, cap: int, **kw) -> Tuple[Events, torch.Tensor]:
+    """Fused-solver detection for any series length: one launch when the
+    series fits ``MAX_FUSED_BLOCKS``, otherwise exact chunked execution —
+    each chunk gets a ``window_blocks`` delta halo (its rolling-statistics
+    history), the carried freeze horizon / standing threshold, and the
+    whole-series fixed threshold; seam-spanning runs merge via
+    ``merge_adjacent``.  The carries stay on the device: nothing here waits
+    on the host between chunks."""
+    n = delta.shape[0]
+    if n <= ak.MAX_FUSED_BLOCKS:
+        thresholds, above, s_incl, csm = ak.adaptive_solver_fused(delta, **kw)
+        return events_from_run_sums(s_incl, csm, above, cap), thresholds
+
+    k = kw["threshold_std_factor"]
+    w = kw["window_blocks"]
+    fa = kw["freeze_blocks_after"]
+    fb = kw["freeze_blocks_before"]
+    fixed_thr = delta.mean() + k * delta.std(correction=0)  # whole-file, two-pass
+    chunk = ak.MAX_FUSED_BLOCKS - w
+
+    events = None
+    thr_parts = []
+    freeze_in = torch.tensor(-1, dtype=torch.int32, device=delta.device)
+    thr_in = fixed_thr
+    for c0 in range(0, n, chunk):
+        c1 = min(c0 + chunk, n)
+        halo = w if c0 else 0
+        thr_c, above_c, s_c, cs_c = ak.adaptive_solver_fused_chunk(
+            delta[c0 - halo : c1], c0, freeze_in, fixed_thr, thr_in, halo, **kw
+        )
+        ev_c = events_from_run_sums(s_c, cs_c, above_c, cap)
+        events = ev_c if events is None else merge_adjacent(events, ev_c, c0)
+        thr_parts.append(thr_c)
+        ii = torch.arange(c0, c1, dtype=torch.int32, device=delta.device)
+        f_c = torch.where(above_c, torch.maximum(ii + fa, torch.clamp(ii - fb, min=0)), -1)
+        freeze_in = torch.maximum(freeze_in, f_c.max())
+        thr_in = thr_c[-1]
+    # merge_adjacent grew the buffer to n_chunks*cap; restore the same
+    # fixed-cap contract as the single-launch path (count ≤ cap, overflow
+    # flags drops)
+    return truncate_events(events, cap), torch.cat(thr_parts)
