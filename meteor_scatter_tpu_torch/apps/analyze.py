@@ -33,7 +33,6 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from meteor_scatter_tpu.utils.timing import PhaseTimer
 from meteor_scatter_tpu_torch.device import DeviceLike, resolve_device
 from meteor_scatter_tpu_torch.io.events_csv import (
     OutputDetection,
@@ -45,6 +44,7 @@ from meteor_scatter_tpu_torch.io.wavio import read_wav
 from meteor_scatter_tpu_torch.models.adaptive import detect_adaptive
 from meteor_scatter_tpu_torch.models.fixed import detect_fixed
 from meteor_scatter_tpu_torch.ops.bandpower import delta_power_db
+from meteor_scatter_tpu_torch.utils.timing import PhaseTimer
 
 NOT_PORTED = "is not yet ported to meteor_scatter_tpu_torch (use meteor_scatter_tpu.apps.analyze)"
 

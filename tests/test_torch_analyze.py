@@ -150,16 +150,19 @@ def test_parse_gqrx_start_time_matches_jax(name):
 
 
 def test_jax_free_import_and_run(tmp_path):
-    """Every module of the port imports with ``import jax`` failing, and the
-    analyzer runs end to end on the CPU (both adaptive solvers)."""
+    """Every module of the port imports with ``import jax`` failing, the
+    analyzer (both adaptive solvers) and the live detector (welch and
+    headless) run end to end on the CPU, and afterwards no module of JAX or
+    of the JAX package ``meteor_scatter_tpu`` is loaded."""
     code = textwrap.dedent(
         """
-        import importlib, pkgutil, sys
+        import contextlib, importlib, io, pkgutil, sys
         sys.modules["jax"] = None  # any `import jax` now raises ImportError
         import numpy as np
         import meteor_scatter_tpu_torch as pkg
         for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
             importlib.import_module(m.name)
+        from meteor_scatter_tpu_torch.apps import live
         from meteor_scatter_tpu_torch.apps.analyze import proc_wav_file
         from meteor_scatter_tpu_torch.io.wavio import write_wav
         rng = np.random.default_rng(1)
@@ -170,7 +173,18 @@ def test_jax_free_import_and_run(tmp_path):
         for impl in ("parallel", "fused"):
             res = proc_wav_file(path, device="cpu", impl=impl, verbose=False)
             assert [(d.t_start, d.t_stop) for d in res.detections] == [(40.0, 41.0)], res.detections
-        loaded = [k for k, v in sys.modules.items() if k.split(".")[0] == "jax" and v is not None]
+        y = rng.standard_normal(4000 * 40) * 0.05
+        y[4000 * 20 : 4000 * 21] += 0.6 * np.sin(2 * np.pi * 1000.0 * np.arange(4000) / 4000)
+        path = sys.argv[1] + "/live.wav"
+        write_wav(path, 4000, np.round(y * 32768).astype(np.int16))
+        for extra in ([], ["--headless"]):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                assert live.main([path, "--device", "cpu", "--min-dur", "0.5", *extra]) == 0
+            assert "start=20.00s" in out.getvalue() and "Total detected meteors: 1" in out.getvalue()
+        loaded = [k for k, v in sys.modules.items() if v is not None and (
+            k.split(".")[0] == "jax" or k == "meteor_scatter_tpu"
+            or k.startswith("meteor_scatter_tpu."))]
         assert not loaded, loaded
         print("JAX-FREE OK")
         """
@@ -195,3 +209,32 @@ def test_events_to_detections_block_offset():
     assert [(d.t_start, d.t_stop) for d in dets] == [(11 * 0.2, 13 * 0.2), (14 * 0.2, 15 * 0.2)]
     assert dets[0].utc_start == start + datetime.timedelta(seconds=11 * 0.2)
     assert dets[1].dB == 4.0
+
+
+def test_timing_copy_matches_jax(tmp_path):
+    """The port's own ``PhaseTimer`` / ``Throughput`` report as the JAX
+    package's do; ``maybe_profile`` writes a ``torch.profiler`` trace."""
+    from meteor_scatter_tpu.utils import timing as jt
+    from meteor_scatter_tpu_torch.utils import timing as tt
+
+    timers = []
+    for mod in (tt, jt):
+        timer = mod.PhaseTimer()
+        for phase, dt in (("read", 0.25), ("detect", 0.5), ("read", 0.125)):
+            timer.totals[phase] += dt
+            timer.counts[phase] += 1
+        timers.append(timer)
+        with timer.phase("tiny"):
+            pass
+        assert timer.counts["tiny"] == 1 and timer.totals["tiny"] >= 0.0
+        timer.totals["tiny"] = 0.0
+    assert timers[0].summary() == timers[1].summary()
+    thr = tt.Throughput()
+    assert thr.samples_per_sec == 0.0
+    thr.add(6000, 0.5)
+    assert thr.samples_per_sec == 12000.0
+    with tt.maybe_profile(None):
+        pass
+    with tt.maybe_profile(str(tmp_path / "trace")):
+        torch.ones(4).sum()
+    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0

@@ -92,3 +92,43 @@ def test_delta_power_db_matches(pcm):
         np.testing.assert_allclose(a_t.numpy(), np.asarray(a_j), rtol=0, atol=DB_ATOL)
     # the tone stands far above the noise band in its blocks
     assert float(out_t[2][100:105].min()) > 20.0
+
+
+# ---- K2: the fused band-power entry points (the kernel's plain twin here) ----
+
+K2_ATOL = (2e-3, 2e-3, 4e-3)  # band, noise, delta: the JAX package's kernel tolerances
+
+
+@pytest.mark.parametrize("seconds,tone", [(10, True), (7, False)])  # 50 blocks; 35, not a tile multiple
+def test_fused_bandpower_matches_jax_kernel(seconds, tone):
+    from meteor_scatter_tpu.ops.pallas import bandpower_kernel as jbk
+    from meteor_scatter_tpu_torch.ops.kernels import bandpower_kernel as tbk
+
+    rng = np.random.default_rng(seconds)
+    x = (rng.standard_normal(FS * seconds) * 0.5).astype(np.float32)
+    if tone:
+        t = np.arange(FS * seconds) / FS
+        m = (t >= 3.0) & (t < 4.0)
+        x[m] += (2.0 * np.sin(2 * np.pi * 1003.0 * t[m])).astype(np.float32)
+    args = (FS, 1024, 1200, (993.0, 1013.0), (690.0, 710.0))
+    got = tbk.fused_bandpower_delta(torch.from_numpy(x), *args)
+    want = jbk.fused_bandpower_delta(jnp.asarray(x), *args, interpret=True)
+    for g, w, tol in zip(got, want, K2_ATOL):
+        assert g.dtype == torch.float32 and tuple(g.shape) == (seconds * 5,)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=tol)
+    # on the CPU the twin is the analyzer's own band power, bit for bit
+    for g, w in zip(got, tbp.delta_power_db(torch.from_numpy(x), *args)):
+        assert torch.equal(g, w)
+
+
+def test_band_power_db_pallas_checks_its_bands():
+    from meteor_scatter_tpu_torch.ops.kernels import bandpower_kernel as tbk
+
+    M, slices = tbp.band_projection_matrix(FS, 1024, 1200, [(993.0, 1013.0), (690.0, 710.0)])
+    frames = torch.zeros((3, 1200))
+    with pytest.raises(ValueError, match="exactly"):
+        tbk.band_power_db_pallas(frames, M, slices[:1])
+    with pytest.raises(ValueError, match="mismatch"):
+        tbk.band_power_db_pallas(frames, M[:, :-1], slices)
+    band, noise, delta = tbk.band_power_db_pallas(frames, M, slices)
+    assert torch.equal(delta, band - noise) and torch.all(band == -120.0)  # the 1e-12 floor

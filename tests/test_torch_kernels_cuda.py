@@ -6,11 +6,15 @@ machine without JAX.  There, from the repo root (``--noconftest`` skips
 
     python -m pytest tests/test_torch_kernels_cuda.py --noconftest -q
 
-Tests marked ``cuda`` need a GPU and skip without one.  The kernel and its
-twin take float prefix sums in different orders, so the above mask and
-``s_incl`` must be equal, and ``thr`` / ``csm`` agree to ``THR_ATOL`` /
-``CSM_RTOL`` (the reasoning is in ``chip_smoke.py``).  The build tests run
-anywhere: they stand in a fake ``nvcc``.
+Tests marked ``cuda`` need a GPU and skip without one.  K1 (adaptive
+solver) and its twin take float prefix sums in different orders, so the
+above mask and ``s_incl`` must be equal, and ``thr`` / ``csm`` agree to
+``THR_ATOL`` / ``CSM_RTOL`` (the reasoning is in ``chip_smoke.py``).  K3
+(streaming state machine) is bit-exact against its twin on every output
+and the carry.  K2 (band power) sums its FP32 product in another order
+than the twin's ``torch.matmul``: dB levels agree to the JAX package's own
+kernel tolerances, 2e-3 dB (band, noise) and 4e-3 dB (delta).  The build
+tests run anywhere: they stand in a fake ``nvcc``.
 """
 
 import os
@@ -21,11 +25,16 @@ import pytest
 import torch
 
 from meteor_scatter_tpu_torch.models import adaptive as tad
+from meteor_scatter_tpu_torch.models import streaming as tst
+from meteor_scatter_tpu_torch.ops import bandpower as tbp
 from meteor_scatter_tpu_torch.ops.kernels import _build
 from meteor_scatter_tpu_torch.ops.kernels import adaptive_kernel as tak
+from meteor_scatter_tpu_torch.ops.kernels import bandpower_kernel as tbk
+from meteor_scatter_tpu_torch.ops.kernels import stream_kernel as tsk
 
 THR_ATOL = 1e-2
 CSM_RTOL = 1e-5
+K2_ATOL = (2e-3, 2e-3, 4e-3)  # band, noise, delta (tests/test_pallas_kernels.py)
 
 
 def series(n, seed, amp=30.0):
@@ -179,5 +188,189 @@ def test_build_command_and_cache_key(tmp_path, monkeypatch):
 
 
 def test_real_sources_are_shipped():
-    assert (_build.CSRC / "adaptive_solver.cu").is_file()
+    for name in ("adaptive_solver", "stream_machine", "bandpower"):
+        assert (_build.CSRC / f"{name}.cu").is_file()
     assert os.path.basename(_build.BUILD_DIR) == "torch_kernels"
+
+
+# ---- K3: streaming state machine ---------------------------------------------
+
+STREAM_CFG = tst.StreamConfig(block_sec=0.2, avg_win=40, init_wait_sec=8.0, after_wait_sec=12.0,
+                              k_std=4.0, min_mean_db=1.0, min_dur_sec=0.5, cap=64)
+
+
+def stream_inputs(C, n, seed, dev):
+    """Over-noise series with bursts (some rejected as short), PSD means."""
+    rng = np.random.default_rng(seed)
+    on = (rng.standard_normal((C, n)) * 0.3).astype(np.float32)
+    for c in range(C):
+        for b in rng.integers(50, max(n - 50, 51), size=max(n // 150, 1)):
+            on[c, b : b + int(rng.integers(2, 30))] += rng.uniform(2.0, 10.0)
+    pm = (-80.0 + rng.standard_normal((C, n))).astype(np.float32)
+    return torch.from_numpy(on).to(dev), torch.from_numpy(pm).to(dev)
+
+
+def machine_args(state, on, pm):
+    """The kernel's inputs as the streaming solvers build them."""
+    args, kw, _ = tst.machine_inputs(STREAM_CFG, state, on, pm)
+    return args, kw
+
+
+def assert_bits_equal(a, b, what):
+    assert a.dtype == b.dtype and a.shape == b.shape, what
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    assert torch.equal(a, b), what
+
+
+def assert_machine_equals_twin(args, kw):
+    before = tsk.launches
+    ys_k, cf_k, ci_k = tsk._launch(*args, **kw)
+    assert tsk.launches == before + 1
+    ys_p, cf_p, ci_p = tsk.stream_machine_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for k, (a, b) in enumerate(zip(ys_k, ys_p)):
+        assert_bits_equal(a, b, f"output {k}")
+    assert_bits_equal(cf_k, cf_p, "carry_f")
+    assert_bits_equal(ci_k, ci_p, "carry_i")
+    return ys_p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 64, 130])
+def test_stream_machine_fresh_state_bit_exact(cuda, C):
+    on, pm = stream_inputs(C, 700, C, cuda)
+    args, kw = machine_args(tst.stream_init_batch(STREAM_CFG, C, cuda), on, pm)
+    assert bool(torch.isnan(args[2][0]).all())  # block 0: empty ring, NaN base threshold
+    ys = assert_machine_equals_twin(args, kw)
+    assert int(ys[1].sum()) > 0  # events were emitted
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 64, 130])
+def test_stream_machine_carried_state_bit_exact(cuda, C):
+    on, pm = stream_inputs(C, 900, 100 + C, cuda)
+    st, _, _ = tst.stream_scan(STREAM_CFG, tst.stream_init_batch(STREAM_CFG, C, cuda),
+                               on[:, :437], pm[:, :437])
+    assert int((st.state == tst.TRACK).sum() + (st.state == tst.DETECT).sum()) == C
+    args, kw = machine_args(st, on[:, 437:], pm[:, 437:])
+    assert_machine_equals_twin(args, kw)
+
+
+@pytest.mark.cuda
+def test_stream_machine_mid_track_and_short_series(cuda):
+    """A chunk that starts inside a track, and chunks of 0 to 9 blocks."""
+    on, pm = stream_inputs(3, 300, 7, cuda)
+    on[:, 120:160] += 9.0
+    st, _, _ = tst.stream_scan(STREAM_CFG, tst.stream_init_batch(STREAM_CFG, 3, cuda),
+                               on[:, :130], pm[:, :130])
+    assert bool((st.state == tst.TRACK).all())
+    for n in (0, 1, 7, 8, 9, 170):
+        args, kw = machine_args(st, on[:, 130 : 130 + n], pm[:, 130 : 130 + n])
+        assert_machine_equals_twin(args, kw)
+
+
+@pytest.mark.cuda
+def test_stream_fused_equals_scan_on_card(cuda):
+    on, pm = stream_inputs(64, 1100, 5, cuda)
+    st0 = tst.stream_init_batch(STREAM_CFG, 64, cuda)
+    out_f = tst.stream_scan_fused_batch(STREAM_CFG, st0, on, pm)
+    out_s = tst.stream_scan(STREAM_CFG, st0, on, pm)
+    for part_f, part_s in zip(out_f[:2], out_s[:2]):
+        for a, b in zip(part_f, part_s):
+            assert_bits_equal(a, b, "state / events")
+    assert_bits_equal(out_f[2], out_s[2], "thresholds")
+    assert int(out_f[1].count.sum()) > 64
+
+
+@pytest.mark.cuda
+def test_stream_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    on, pm = stream_inputs(4, 50, 1, cuda)
+    args, kw = machine_args(tst.stream_init_batch(STREAM_CFG, 4, cuda), on, pm)
+    on2 = args[0]
+    bad = [
+        (0, on2.cpu()),  # device
+        (0, on2.double()),  # dtype
+        (0, torch.cat([on2, on2], 1)[:, ::2]),  # not contiguous
+        (0, on2.reshape(-1)),  # not 2-D
+        (1, args[1][:-1]),  # shape
+        (2, args[2].cpu()),  # device
+        (3, args[3][:7]),  # carry shape
+        (4, args[4].long()),  # carry dtype
+    ]
+    for pos, value in bad:
+        a = list(args)
+        a[pos] = value
+        with pytest.raises(ValueError):
+            tsk._launch(*a, **kw)
+
+
+# ---- K2: band power ------------------------------------------------------------
+
+
+def k2_inputs(nf, dev, bands=((993.0, 1013.0), (690.0, 710.0)), seed=0):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(nf * 1200 + 77) * 1500).astype(np.float32)
+    x[1200 * (nf // 2) : 1200 * (nf // 2) + 1200] += 9000 * np.sin(
+        2 * np.pi * 1003.0 * np.arange(1200) / 6000
+    ).astype(np.float32)
+    M, slices = tbp.band_projection_matrix(6000, 1024, 1200, list(bands))
+    return torch.from_numpy(x).to(dev), M, slices
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nf", [1, 3, 4, 35, 1001, 4097])
+def test_bandpower_kernel_matches_twin_ragged(cuda, nf):
+    x, M, slices = k2_inputs(nf, cuda, seed=nf)
+    frames = x[: nf * 1200].reshape(nf, 1200)  # a view: rows 1200 apart, 1024 read
+    proj = torch.from_numpy(M).to(cuda)
+    n_band = slices[0].stop
+    before = tbk.launches
+    got = tbk._launch(frames, proj, n_band, 1e-12)
+    assert tbk.launches == before + 1
+    want = tbk.band_power_db_plain(frames, proj, n_band, 1e-12)
+    torch.cuda.synchronize()
+    for g, w, tol in zip(got, want, K2_ATOL):
+        assert g.shape == (nf,)
+        assert float((g - w).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_bandpower_kernel_wide_projection_and_public_entry(cuda):
+    """More than 16 projection columns (the 32-column instance), and the
+    public entry point launching the kernel on a CUDA tensor."""
+    x, M, slices = k2_inputs(300, cuda, bands=((975.0, 1030.0), (690.0, 710.0)))
+    assert 16 < M.shape[1] <= tbk.MAX_COLUMNS
+    before = tbk.launches
+    got = tbk.band_power_db_pallas(x[: 300 * 1200].reshape(300, 1200), M, slices)
+    assert tbk.launches == before + 1
+    want = tbk.band_power_db_pallas(x[: 300 * 1200].reshape(300, 1200).cpu(), M, slices)
+    for g, w, tol in zip(got, want, K2_ATOL):
+        assert float((g.cpu() - w).abs().max()) <= tol
+    got = tbk.fused_bandpower_delta(x, 6000, 1024, 1200, (993.0, 1013.0), (690.0, 710.0))
+    want = tbp.delta_power_db(x, 6000, 1024, 1200, (993.0, 1013.0), (690.0, 710.0))
+    assert tbk.launches == before + 2
+    for g, w, tol in zip(got, want, K2_ATOL):
+        assert float((g - w).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_bandpower_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x, M, slices = k2_inputs(10, cuda)
+    frames = x[:12000].reshape(10, 1200)
+    proj = torch.from_numpy(M).to(cuda)
+    bad = [
+        (0, frames.cpu()),  # device
+        (0, frames.double()),  # dtype
+        (0, frames.t()),  # columns not unit-stride
+        (0, x[:12000]),  # not 2-D
+        (0, frames[:, :1000]),  # narrower than the projection
+        (1, proj.double()),  # projection dtype
+        (1, proj.t()),  # projection not contiguous
+        (1, torch.zeros((1024, 40), device=cuda)),  # too many columns
+    ]
+    for pos, value in bad:
+        a = [frames, proj, slices[0].stop, 1e-12]
+        a[pos] = value
+        with pytest.raises(ValueError):
+            tbk._launch(*a)
