@@ -14,10 +14,15 @@ non-zero (there is no CPU fallback):
    process per source, all started together.
 3. kernel_check  — each kernel against its plain PyTorch twin on the card at
    the main paths' shapes, with stated tolerances, both timed with CUDA
-   events: K1 (adaptive solver), K3 (streaming state machine, bit-exact at
-   3 000 x 64 fresh, 300 x 1 carried mid-track, 1 100 x 130) and K2 (band
-   power at the 24 h analyzer shape, with ``torch.matmul`` plus the same
-   epilogue as a yardstick the port never calls).
+   events: K1 (adaptive solver), K3 (the fused streaming solve: prologue,
+   state machine, compaction and ring in one launch; bit-exact at 3 000 x
+   64 fresh, 300 x 1 carried mid-track, 1 100 x 130, and at the seams and
+   edges: mid-Init with n = 303, inside a lock window, a track open at the
+   end, 20 000 blocks over three shared-memory tiles, a series crossing the
+   threshold every block with an overflowing buffer; its time is the
+   profiler's device time of the kernel) and K2 (band power at the 24 h
+   analyzer shape, with ``torch.matmul`` plus the same epilogue as a
+   yardstick the port never calls).
 4. e2e           — a 24 h, 6 kHz, int16 WAV with a 1 s 1003 Hz tone every
    47 s through ``apps.analyze.main`` (K1 launched once per chunk, every
    tone detected, fused == parallel events).
@@ -30,8 +35,9 @@ non-zero (there is no CPU fallback):
    day; a profiled hour.
 7. e2e_stations  — 64 stations x 600 s at 4 kHz, pre-blocked, through
    ``stream_front_headless`` + ``stream_scan_fused_batch`` (one K3
-   launch), events bit-equal to the scan twin's, every station's tone
-   found, aggregate samples/s.
+   launch, and the profiled solve shows K3 as its only device row),
+   events bit-equal to the scan twin's, every station's tone found,
+   aggregate samples/s.
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after.  The last three lines are the ``nvidia-smi`` line, one
@@ -93,6 +99,9 @@ STATIONS, STATION_SECONDS = 64, 600.0
 # K2 against its twin: the JAX package's own kernel tolerances in dB
 # (tests/test_pallas_kernels.py): band, noise, delta.
 K2_ATOL = (2e-3, 2e-3, 4e-3)
+# A fresh profiler window can miss the first kernel records; the timed
+# work starts this long after the window opens.
+TRACER_SETTLE_S = 0.2
 # Card peaks for the bound (H100 SXM data sheet): HBM bytes/s, FP32 FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -417,49 +426,122 @@ def live_config():
                            detection_dur_min_sec=0.5)
 
 
+def kernel_device_ms(fn, kernel: str, reps: int = 20) -> float:
+    """Mean device time of one launch of ``kernel`` over ``reps`` calls of
+    ``fn``, from the profiler's kernel rows (over the launches it
+    recorded): the kernel alone, without the host work of the call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACER_SETTLE_S)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if kernel in e.key and e.self_device_time_total > 0]
+    count = sum(e.count for e in rows)
+    if not reps // 2 <= count <= reps:  # the tracer may drop a record at the window's edge
+        raise AssertionError(f"the profile shows {[(e.key, e.count) for e in rows]} for {kernel}")
+    return sum(e.self_device_time_total for e in rows) / count / 1e3
+
+
+def alternating_series(n: int):
+    """Two channels that cross the locked threshold every block after a
+    quiet start: period 2 (episodes, none accepted) and period 3 (an
+    accepted two-block track every three blocks)."""
+    import torch
+
+    on = (np.random.default_rng(3).standard_normal((2, n)) * 0.1).astype(np.float32)
+    k = np.arange(n - 100)
+    on[0, 100:] = np.where(k % 2 == 0, 5.0, -1.0)
+    on[1, 100:] = np.where(k % 3 < 2, 5.0, -1.0)
+    return torch.from_numpy(on).to(DEVICE), torch.zeros((2, n), device=DEVICE)
+
+
 def phase_kernel_k3() -> dict:
-    """K3 (kernel) against its twin on the card, bit for bit on all nine
-    output series and both carries: the stations shape from a fresh state,
-    the live feed shape from a carried mid-track state, and a ragged warp
-    with more than 128 channels."""
+    """K3 (the fused streaming solve) against its twin on the card, bit for
+    bit on thresholds, every event slot, count, overflow, every state leaf
+    and the ring: the stations shape from a fresh state, the live feed
+    shape from a carried mid-track state, a ragged grid of 130 channels,
+    and the seams and edges a stream meets."""
     import torch
 
     from meteor_scatter_tpu_torch.models import streaming as st
     from meteor_scatter_tpu_torch.ops.kernels import stream_kernel as sk
 
     scfg = st.StreamConfig.from_config(live_config())
+
+    def carried(on, pm, n_before, cfg=scfg):
+        state = st.stream_scan(cfg, st.stream_init_batch(cfg, on.shape[0], DEVICE),
+                               on[:, :n_before], pm[:, :n_before])[0]
+        return state, on[:, n_before:].contiguous(), pm[:, n_before:].contiguous()
+
+    def case_inputs(label):
+        """(state, on, pm, StreamConfig, what the carried state must be)."""
+        fresh = lambda C, on, pm, cfg=scfg: (st.stream_init_batch(cfg, C, DEVICE), on, pm, cfg)
+        if label == "stations":
+            return fresh(64, *stream_series(64, 3000, seed=64 * 3000)), None
+        if label == "live_feed":  # a burst over the seam: the feed starts inside a track
+            on, pm = stream_series(1, 600, seed=11)
+            on[:, 280:330] += 12.0
+            return (*carried(on, pm, 300), scfg), st.TRACK
+        if label == "ragged":
+            return fresh(130, *stream_series(130, 1100, seed=130 * 1100)), None
+        if label == "mid_init_n303":  # n not a multiple of 4: plain loads
+            on, pm = stream_series(4, 320, seed=5)
+            return (*carried(on, pm, 17), scfg), st.INIT
+        if label == "lock_window":  # the lock runs ~58 blocks past the seam
+            on, pm = stream_series(4, 600, seed=6)
+            on[:, 150:190] += 9.0
+            return (*carried(on, pm, 200), scfg), st.DETECT
+        if label == "track_open_at_end":  # a 90-block track still open at the end
+            on, pm = stream_series(2, 400, seed=8)
+            on[:, 320:] += 9.0
+            return fresh(2, on, pm), None
+        if label == "two_tiles_20000":  # past one shared-memory tile
+            on, pm = stream_series(2, 20000, seed=9)
+            on[:, 8150:8250] += 9.0  # a track across the tile seam
+            return fresh(2, on, pm), None
+        if label == "alternating_cap16":  # ~n episodes, the buffer overflows
+            cfg = scfg._replace(cap=16, min_dur_sec=0.2)
+            return fresh(2, *alternating_series(700), cfg), None
+        raise ValueError(label)
+
     cases = []
-    for label, C, n, carried in (("stations", 64, 3000, False), ("live_feed", 1, 300, True),
-                                 ("ragged", 130, 1100, False)):
-        if carried:  # a burst over the seam: the second feed starts inside a track
-            on, pm = stream_series(C, 2 * n, seed=11)
-            on[:, n - 20 : n + 30] += 12.0
-            state, _, _ = st.stream_scan(scfg, st.stream_init_batch(scfg, C, DEVICE),
-                                         on[:, :n], pm[:, :n])
-            if not bool((state.state == st.TRACK).all()):
-                raise AssertionError("the carried live-feed state is not mid-track")
-            on, pm = on[:, n:], pm[:, n:]
-        else:
-            on, pm = stream_series(C, n, seed=C * n)
-            state = st.stream_init_batch(scfg, C, DEVICE)
-        args, kw, _ = st.machine_inputs(scfg, state, on, pm)
-        ys_k, cf_k, ci_k = sk._launch(*args, **kw)
-        ys_p, cf_p, ci_p = sk.stream_machine_plain(*args, **kw)
+    for label in ("stations", "live_feed", "ragged", "mid_init_n303", "lock_window",
+                  "track_open_at_end", "two_tiles_20000", "alternating_cap16"):
+        (state, on, pm, cfg), want_state = case_inputs(label)
+        if want_state is not None and not bool((state.state == want_state).all()):
+            raise AssertionError(f"{label}: the carried state is not {want_state}")
+        args, kw = (on, pm, tuple(state)), st.solve_params(cfg)
+        got = sk._launch(*args, **kw)
+        want = sk.stream_solve_plain(*args, **kw)
         torch.cuda.synchronize()
-        outs = list(zip(ys_k, ys_p)) + [(cf_k, cf_p), (ci_k, ci_p)]
-        unequal = [k for k, (a, b) in enumerate(outs) if not bits_equal(a, b)]
-        finite = [(a.float() - b.float())[torch.isfinite(b.float())].abs() for a, b in outs]
+        if label == "track_open_at_end" and not bool((want[0][0] == st.TRACK).all()):
+            raise AssertionError("track_open_at_end: the chunk does not end inside a track")
+        names = (["thresholds"] + list(st.StreamEvents._fields)
+                 + ["state." + f for f in st.StreamState._fields])
+        pairs = list(zip([got[2], *got[1], *got[0]], [want[2], *want[1], *want[0]]))
+        unequal = [nm for nm, (a, b) in zip(names, pairs) if not bits_equal(a, b)]
+        finite = [(a.float() - b.float())[torch.isfinite(b.float())].abs() for a, b in pairs]
+        C, n = on.shape
+        w, cap = state.ring.shape[1], kw["cap"]
         case = {
-            "case": label, "C": C, "n": n, "carried": carried,
-            "bit_exact": not unequal, "unequal_outputs": unequal,
+            "case": label, "C": C, "n": n, "bit_exact": not unequal, "unequal_outputs": unequal,
             "max_abs_err": max(float(e.max()) if e.numel() else 0.0 for e in finite),
-            "emitted": int(ys_p[1].sum()), "nan_base_thr_blocks": int(torch.isnan(args[2]).sum()),
-            "ms": cuda_ms(lambda: sk._launch(*args, **kw)),
-            "plain_ms": cuda_ms(lambda: sk.stream_machine_plain(*args, **kw), warmup=1, reps=3),
-            # in: on, pm, base thr + the carry; out: nine series + the carry;
-            # ~20 float operations per block and channel
-            **bound(12 * 4 * n * C + 2 * 14 * 4 * C, 20 * n * C),
+            "events": int(want[1][7].sum()), "overflow": int(want[1][8].sum()),
+            "nan_thresholds": int(torch.isnan(want[2]).sum()),
+            # in: on, pm, the state (14 leaves + the ring); out: thresholds,
+            # the event buffers, count, overflow, the state; 2*w adds a block
+            **bound(3 * 4 * n * C + 7 * 4 * C * cap + 5 * C + 2 * (14 * 4 + 4 * w) * C,
+                    2 * w * n * C),
         }
+        if label in ("stations", "live_feed"):
+            case["ms"] = kernel_device_ms(lambda: sk._launch(*args, **kw), "stream_solve_kernel")
+            case["call_ms"] = cuda_ms(lambda: sk._launch(*args, **kw))
+            case["plain_ms"] = cuda_ms(lambda: sk.stream_solve_plain(*args, **kw), warmup=1, reps=3)
         emit({"phase": "kernel_check", "kernel": "stream_machine", **case})
         cases.append(case)
     bad = [c["case"] for c in cases if not c["bit_exact"]]
@@ -674,6 +756,7 @@ def phase_e2e_live(tmp: str) -> dict:
 
     # --- one hour of the main path under the profiler: device busy share ---
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACER_SETTLE_S)
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
             live.wav_file_process(wav, cfg, wav_file_stop_sec=3600, expected_sample_rate=None,
@@ -756,10 +839,25 @@ def phase_e2e_stations() -> dict:
         return st.stream_scan_fused_batch(scfg, st0, o, p)
 
     total_ms = cuda_ms(pipeline, warmup=2, reps=9)
+    # twenty solves alone: K3 is the only device row (10 to 20 launches of
+    # it, should the tracer miss a record at the window's edge)
+    reps = 20
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACER_SETTLE_S)
+        for _ in range(reps):
+            st.stream_scan_fused_batch(scfg, st0, on, pm)
+        torch.cuda.synchronize()
+    solve_rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+                  if e.self_device_time_total > 0]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACER_SETTLE_S)
         pipeline()
         torch.cuda.synchronize()
     rows = device_rows(prof)
+    if (len(solve_rows) != 1 or "stream_solve_kernel" not in solve_rows[0][0]
+            or not reps // 2 <= solve_rows[0][2] <= reps):
+        raise AssertionError(f"stations: the profiled solves ran {solve_rows}, not K3 alone "
+                             f"(pipeline rows: {[(k, c) for k, _, c in rows]})")
     out = {
         "phase": "e2e_stations", "stations": STATIONS, "seconds": STATION_SECONDS,
         "blocks": int(on.shape[1]), "launches": launches, "events": int(counts.sum()),
@@ -770,6 +868,7 @@ def phase_e2e_stations() -> dict:
         "agg_samples_per_s": STATIONS * n / (total_ms / 1e3),
         "profiled_device_ms": sum(r[1] for r in rows),
         "profiled_device_top": [[k, round(ms, 3), c] for k, ms, c in rows[:10]],
+        "profiled_solve_rows": [[k, ms, c] for k, ms, c in solve_rows],
     }
     emit(out)
     return out

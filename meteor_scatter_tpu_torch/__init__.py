@@ -13,8 +13,9 @@ Ported so far:
   event CSV and Audacity labels;
 * the streaming live detector (:mod:`meteor_scatter_tpu_torch.apps.live`)
   and its multi-station batch (:mod:`meteor_scatter_tpu_torch.models.streaming`)
-  — Welch or bins-only band levels → the 3-state machine (the CUDA kernel
-  ``csrc/stream_machine.cu`` on a GPU, its twin on the CPU) → events;
+  — Welch or bins-only band levels → the block-rate solve: rolling
+  threshold, 3-state machine and event compaction (one launch of the CUDA
+  kernel ``csrc/stream_machine.cu`` on a GPU, its twin on the CPU) → events;
 * the fused band power (``ops/kernels/bandpower_kernel.py``, the CUDA
   kernel ``csrc/bandpower.cu``).
 

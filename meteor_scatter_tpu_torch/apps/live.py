@@ -4,9 +4,9 @@
 
 Audio is consumed in chunks (bounded memory, like the reference's block
 loop); each chunk's band levels are computed as one batched tensor program
-on the chosen device and the 3-state decision machine runs over the
-chunk's blocks — on a GPU as one launch of the hand-written CUDA kernel
-``csrc/stream_machine.cu``.
+on the chosen device and the block-rate solve (rolling threshold, 3-state
+decision machine, event compaction) runs over the chunk's blocks — on a GPU
+as one launch of the hand-written CUDA kernel ``csrc/stream_machine.cu``.
 
 Usage::
 

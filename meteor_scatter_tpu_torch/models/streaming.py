@@ -27,12 +27,12 @@ Per-block semantics (as the reference package):
   ≥ detection_dur_min_sec (`processor.py:476-493`)
 
 Solvers: :func:`stream_step` is the per-block oracle formulation;
-:func:`stream_scan` runs the block machine as the plain PyTorch twin of K3
-(:func:`meteor_scatter_tpu_torch.ops.kernels.stream_kernel.stream_machine_plain`)
-on any device; :func:`stream_scan_fused_batch` runs the same machine on
-the series' device, which is the hand-written CUDA kernel K3 on a GPU.
-Both share the base-threshold prologue, the event compaction and the
-final ring, so they are bit-exact with each other on one device.  Every
+:func:`stream_scan` runs the block-rate solve (base-threshold prologue,
+block machine, event compaction, final ring) as the plain PyTorch twin of
+K3 (:func:`meteor_scatter_tpu_torch.ops.kernels.stream_kernel.stream_solve_plain`)
+on any device; :func:`stream_scan_fused_batch` runs the same solve on the
+series' device, which is one launch of the hand-written CUDA kernel K3 on
+a GPU.  The two are bit-exact with each other on one device.  Every
 state and series is batched over a leading channel axis where the
 reference uses ``vmap``; an unbatched call is one channel.
 """
@@ -333,41 +333,6 @@ def stream_step(cfg: StreamConfig, state: StreamState, events: StreamEvents, ove
     return new_state, events, thr
 
 
-def _ring_base_thresholds(ring, i0, on, w: int, k_std: float):
-    """Per-block rolling threshold of every channel: ``ring`` (C, w), ``i0``
-    (C,) absolute index of the first block, ``on`` (C, n).  Returns
-    (base_thr (C, n), ext (C, w + n)).
-
-    ``ext`` is the incoming ring in absolute block order followed by the
-    chunk, so index 0 is absolute block ``i0 - w``.  Row r's window holds,
-    in ring slot order j (the order :func:`stream_step` sums its ring in),
-    the value at block ``i - w + ((j - i) mod w)`` with i = i0 + r, i.e.
-    ``ext[r + ((j - i0 - r) mod w)]`` — one gather.  Both solvers of this
-    module share this prologue, so they see the same base thresholds bit
-    for bit; the window sum runs in another order than XLA's, so against
-    the JAX package the thresholds agree to float32 rounding.
-    """
-    C, n = on.shape
-    dev = on.device
-    j = torch.arange(w, device=dev)
-    i0 = i0.to(torch.int64)
-    prev = ring.gather(1, torch.remainder(i0[:, None] - w + j, w))
-    ext = torch.cat([prev, on.to(ring.dtype)], dim=1)
-
-    r = torch.arange(n, device=dev)
-    idx = r[None, :, None] + torch.remainder(j[None, None, :] - i0[:, None, None] - r[None, :, None], w)
-    v = ext.gather(1, idx.reshape(C, n * w)).reshape(C, n, w)
-
-    cnt = torch.clamp(i0[:, None] + r[None, :], max=w)
-    valid = j < cnt[..., None]
-    cnt_f = torch.clamp(cnt, min=1).to(ring.dtype)
-    zero = torch.zeros((), dtype=ring.dtype, device=dev)
-    m = torch.where(valid, v, zero).sum(dim=-1) / cnt_f
-    m2 = torch.where(valid, v * v, zero).sum(dim=-1) / cnt_f
-    std = torch.sqrt(torch.maximum(m2 - m * m, zero))
-    return torch.where(cnt > 0, m + k_std * std, torch.full_like(m, math.nan)), ext
-
-
 def _blocked(samples: torch.Tensor, block: int) -> torch.Tensor:
     """Shape audio as ``(..., n_blocks, block)``: flat ``(..., S)`` audio is
     cut into whole blocks (a view), audio already ``(..., n_blocks, block)``
@@ -463,95 +428,35 @@ def stream_front_headless(cfg: DetectionConfig, samples: torch.Tensor, fs: float
     return over_noise, psd_db_mean, diags
 
 
-def _final_ring(ext: torch.Tensor, i0: torch.Tensor, i_end: torch.Tensor, w: int) -> torch.Tensor:
-    """The carry ring after a chunk, per channel: slot s holds the value at
-    the largest written block k with k ≡ s (mod w) — one gather over the
-    extended series ``ext`` (C, w + n), whose index 0 is absolute block
-    ``i0 - w``."""
-    s = torch.arange(w, device=ext.device)
-    i0, i_end = i0.to(torch.int64)[:, None], i_end.to(torch.int64)[:, None]
-    k_last = i_end - w + torch.remainder(s - i_end, w)
-    return ext.gather(1, k_last - (i0 - w))
-
-
-def _compact_scan_outs(scfg: StreamConfig, outs) -> StreamEvents:
-    """Turn the per-step outputs (each (C, n)) into fixed-cap event buffers
-    (C, cap): the m-th emitting block of a channel lands in slot m.  Slots
-    come from a running count of emits and one indexed write; emits past
-    ``cap`` are dropped, counted, and flag ``overflow``."""
-    (emit, e_start, e_stop, e_dur, e_min, e_max, e_mean, e_std) = outs
-    cap = scfg.cap
-    em = emit != 0
-    C = em.shape[0]
-    c = torch.cumsum(em.to(torch.int32), dim=1, dtype=torch.int32)
-    num = em.sum(dim=1, dtype=torch.int32)
-    slot = torch.where(em & (c <= cap), c - 1, cap).to(torch.int64)  # slot cap: dropped
-    vals = torch.stack([e_start, e_stop, e_dur, e_min, e_max, e_mean, e_std])
-    buf = torch.zeros((7, C, cap + 1), dtype=vals.dtype, device=vals.device)
-    buf.scatter_(2, slot.expand(7, -1, -1), vals)
-    return StreamEvents(*buf[:, :, :cap].unbind(0), count=num, overflow=num > cap)
-
-
-def machine_inputs(scfg: StreamConfig, state: StreamState, over_noise, psd_db_mean):
-    """The block machine's inputs for a chunk of C channels: ``(args,
-    kwargs, ext)`` where ``stream_kernel.stream_machine(*args, **kwargs)``
-    runs the chunk (time-major series, packed carry, float32 constants),
-    and ``ext`` is the prologue's extended series for :func:`_final_ring`."""
-    w = scfg.avg_win
-    base_thr, ext = _ring_base_thresholds(
-        state.ring, state.block_idx, over_noise, w, scfg.k_std
-    )
-    carry_f = torch.stack([
-        state.locked_threshold, state.track_start_sec,
-        state.tr_sum, state.tr_sumsq, state.tr_min, state.tr_max,
-        state.init_sum, state.psd_db_mean_from_init,
-    ]).to(torch.float32)
-    carry_i = torch.stack([
-        state.state, state.locked_until_block, state.track_start_block,
-        state.tr_count, state.init_count, state.block_idx,
-    ]).to(torch.int32)
-
-    def time_major(a):
-        return a.t().to(torch.float32).contiguous()
-
-    args = (time_major(over_noise), time_major(psd_db_mean), time_major(base_thr), carry_f, carry_i)
-    kwargs = dict(
+def solve_params(scfg: StreamConfig) -> dict:
+    """The solve's keywords (:func:`stream_kernel.stream_solve_plain`): the
+    float constants as the kernel takes them, and the block counts."""
+    return dict(
+        k_std=float(scfg.k_std),
         block_sec=float(scfg.block_sec),
         init_wait_sec=float(scfg.init_wait_sec),
         min_mean_db=float(scfg.min_mean_db),
         min_dur_b=min_duration_blocks(scfg.min_dur_sec, scfg.block_sec),
         lock_tail=lock_tail_blocks(scfg.after_wait_sec, scfg.block_sec),
+        cap=int(scfg.cap),
     )
-    return args, kwargs, ext
 
 
-def _solve(scfg: StreamConfig, state: StreamState, over_noise, psd_db_mean, machine):
-    """Prologue, block machine, compaction and final ring of one chunk of
-    C channels; an unbatched call (1-D series, scalar state) is C = 1."""
+def _solve(scfg: StreamConfig, state: StreamState, over_noise, psd_db_mean, solve):
+    """One chunk of C channels through ``solve`` (the kernel's layout, see
+    :mod:`meteor_scatter_tpu_torch.ops.kernels.stream_kernel`); an
+    unbatched call (1-D series, scalar state) is C = 1.  Series that are not
+    contiguous are copied first; the fronts' are, so on the main path only
+    views are taken around the solve."""
     if over_noise.dim() == 1:
         st, ev, thr = _solve(
             scfg, _map(lambda a: a.unsqueeze(0), state), over_noise[None], psd_db_mean[None],
-            machine,
+            solve,
         )
         return _map(lambda a: a[0], st), _map(lambda a: a[0], ev), thr[0]
-
-    args, kwargs, ext = machine_inputs(scfg, state, over_noise, psd_db_mean)
-    ys, cf1, ci1 = machine(*args, **kwargs)
-    thresholds = ys[0].t()
-    events = _compact_scan_outs(scfg, tuple(y.t() for y in ys[1:]))
-
-    i_end = state.block_idx + over_noise.shape[1]
-    new_state = StreamState(
-        state=ci1[0], block_idx=i_end,
-        ring=_final_ring(ext, state.block_idx, i_end, scfg.avg_win).to(state.ring.dtype),
-        locked_threshold=cf1[0], locked_until_block=ci1[1],
-        track_start_sec=cf1[1], track_start_block=ci1[2],
-        tr_count=ci1[3], tr_sum=cf1[2], tr_sumsq=cf1[3],
-        tr_min=cf1[4], tr_max=cf1[5],
-        init_sum=cf1[6], init_count=ci1[4],
-        psd_db_mean_from_init=cf1[7],
-    )
-    return new_state, events, thresholds
+    st, ev, thr = solve(over_noise.contiguous(), psd_db_mean.contiguous(), tuple(state),
+                        **solve_params(scfg))
+    return StreamState(*st), StreamEvents(*ev), thr
 
 
 def stream_scan(
@@ -562,11 +467,12 @@ def stream_scan(
 ) -> Tuple[StreamState, StreamEvents, torch.Tensor]:
     """The sequential 3-state machine over one chunk — the block-rate back
     half of :func:`stream_process` (reference semantics:
-    `processor.py:444-510`).  The block machine is K3's plain PyTorch twin
-    on whatever device the series lie on.  Returns (new_state, events,
+    `processor.py:444-510`).  The whole solve is K3's plain PyTorch twin
+    (``stream_solve_plain``) on whatever device the series lie on.  Returns
+    (new_state, events,
     per-block thresholds); batched over a leading channel axis, or one
     channel with 1-D series and a scalar state."""
-    return _solve(scfg, state, over_noise, psd_db_mean, stream_kernel.stream_machine_plain)
+    return _solve(scfg, state, over_noise, psd_db_mean, stream_kernel.stream_solve_plain)
 
 
 def stream_scan_fused_batch(
@@ -577,15 +483,16 @@ def stream_scan_fused_batch(
 ) -> Tuple[StreamState, StreamEvents, torch.Tensor]:
     """Batched fused form of :func:`stream_scan` — the wide-station solver
     (BASELINE config 5): on a GPU one launch of the CUDA kernel K3 runs
-    every channel, any C; on the CPU the same call runs K3's twin.
+    the whole solve of every channel (prologue, machine, compaction, ring),
+    any C, and nothing else is launched; on the CPU the same call runs K3's
+    twin.
 
-    Contract: bit-exact vs :func:`stream_scan` on the same device — same
-    base-threshold prologue, a kernel that is bit-exact against the twin,
-    and the same compaction and final ring.
+    Contract: bit-exact vs :func:`stream_scan` on the same device, since
+    the kernel is bit-exact against the twin on every output.
     """
     if over_noise.dim() != 2:
         raise ValueError(f"over_noise must be (C, n_blocks), got shape {tuple(over_noise.shape)}")
-    return _solve(scfg, state, over_noise, psd_db_mean, stream_kernel.stream_machine)
+    return _solve(scfg, state, over_noise, psd_db_mean, stream_kernel.stream_solve)
 
 
 def stream_scan_fused(
@@ -596,7 +503,7 @@ def stream_scan_fused(
 ) -> Tuple[StreamState, StreamEvents, torch.Tensor]:
     """Single-series form of :func:`stream_scan_fused_batch` (same
     (new_state, events, thresholds) contract as :func:`stream_scan`)."""
-    return _solve(scfg, state, over_noise, psd_db_mean, stream_kernel.stream_machine)
+    return _solve(scfg, state, over_noise, psd_db_mean, stream_kernel.stream_solve)
 
 
 def resolve_stream_auto(front: str, impl: str, device: DeviceLike) -> Tuple[str, str]:

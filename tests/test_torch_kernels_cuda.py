@@ -10,8 +10,8 @@ Tests marked ``cuda`` need a GPU and skip without one.  K1 (adaptive
 solver) and its twin take float prefix sums in different orders, so the
 above mask and ``s_incl`` must be equal, and ``thr`` / ``csm`` agree to
 ``THR_ATOL`` / ``CSM_RTOL`` (the reasoning is in ``chip_smoke.py``).  K3
-(streaming state machine) is bit-exact against its twin on every output
-and the carry.  K2 (band power) sums its FP32 product in another order
+(the fused streaming solve) is bit-exact against its twin on thresholds,
+every event slot, count, overflow, every state leaf and the ring.  K2 (band power) sums its FP32 product in another order
 than the twin's ``torch.matmul``: dB levels agree to the JAX package's own
 kernel tolerances, 2e-3 dB (band, noise) and 4e-3 dB (delta).  The build
 tests run anywhere: they stand in a fake ``nvcc``.
@@ -19,6 +19,7 @@ tests run anywhere: they stand in a fake ``nvcc``.
 
 import os
 import stat
+import time
 
 import numpy as np
 import pytest
@@ -193,7 +194,7 @@ def test_real_sources_are_shipped():
     assert os.path.basename(_build.BUILD_DIR) == "torch_kernels"
 
 
-# ---- K3: streaming state machine ---------------------------------------------
+# ---- K3: the fused streaming solve ---------------------------------------------
 
 STREAM_CFG = tst.StreamConfig(block_sec=0.2, avg_win=40, init_wait_sec=8.0, after_wait_sec=12.0,
                               k_std=4.0, min_mean_db=1.0, min_dur_sec=0.5, cap=64)
@@ -210,10 +211,20 @@ def stream_inputs(C, n, seed, dev):
     return torch.from_numpy(on).to(dev), torch.from_numpy(pm).to(dev)
 
 
-def machine_args(state, on, pm):
-    """The kernel's inputs as the streaming solvers build them."""
-    args, kw, _ = tst.machine_inputs(STREAM_CFG, state, on, pm)
-    return args, kw
+def alternating_inputs(n, dev):
+    """Two channels that cross the locked threshold every block (after a
+    quiet start): period 2 (an episode every two blocks, none accepted) and
+    period 3 (an accepted two-block track every three blocks)."""
+    on = (np.random.default_rng(3).standard_normal((2, n)) * 0.1).astype(np.float32)
+    k = np.arange(n - 100)
+    on[0, 100:] = np.where(k % 2 == 0, 5.0, -1.0)
+    on[1, 100:] = np.where(k % 3 < 2, 5.0, -1.0)
+    return torch.from_numpy(on).to(dev), torch.zeros((2, n), device=dev)
+
+
+def carried_state(scfg, on, pm, n_before):
+    return tst.stream_scan(scfg, tst.stream_init_batch(scfg, on.shape[0], on.device),
+                           on[:, :n_before], pm[:, :n_before])[0]
 
 
 def assert_bits_equal(a, b, what):
@@ -223,51 +234,94 @@ def assert_bits_equal(a, b, what):
     assert torch.equal(a, b), what
 
 
-def assert_machine_equals_twin(args, kw):
+def assert_solve_equals_twin(state, on, pm, scfg=STREAM_CFG, **kw):
+    """One launch of K3 against ``stream_solve_plain`` on the same inputs:
+    thresholds, every event slot, count, overflow, every state leaf and the
+    ring, bit for bit.  Returns the twin's events."""
+    params = tst.solve_params(scfg)
     before = tsk.launches
-    ys_k, cf_k, ci_k = tsk._launch(*args, **kw)
+    st_k, ev_k, thr_k = tsk._launch(on, pm, tuple(state), **params, **kw)
     assert tsk.launches == before + 1
-    ys_p, cf_p, ci_p = tsk.stream_machine_plain(*args, **kw)
+    st_p, ev_p, thr_p = tsk.stream_solve_plain(on, pm, tuple(state), **params)
     torch.cuda.synchronize()
-    for k, (a, b) in enumerate(zip(ys_k, ys_p)):
-        assert_bits_equal(a, b, f"output {k}")
-    assert_bits_equal(cf_k, cf_p, "carry_f")
-    assert_bits_equal(ci_k, ci_p, "carry_i")
-    return ys_p
+    assert_bits_equal(thr_k, thr_p, "thresholds")
+    for name, a, b in zip(tst.StreamEvents._fields, ev_k, ev_p):
+        assert_bits_equal(a, b, name)
+    for name, a, b in zip(tst.StreamState._fields, st_k, st_p):
+        assert_bits_equal(a, b, name)
+    return tst.StreamEvents(*ev_p)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("C", [1, 64, 130])
-def test_stream_machine_fresh_state_bit_exact(cuda, C):
-    on, pm = stream_inputs(C, 700, C, cuda)
-    args, kw = machine_args(tst.stream_init_batch(STREAM_CFG, C, cuda), on, pm)
-    assert bool(torch.isnan(args[2][0]).all())  # block 0: empty ring, NaN base threshold
-    ys = assert_machine_equals_twin(args, kw)
-    assert int(ys[1].sum()) > 0  # events were emitted
+@pytest.mark.parametrize("C,n", [(1, 300), (64, 3000), (130, 1100)])
+def test_stream_machine_fresh_state_bit_exact(cuda, C, n):
+    on, pm = stream_inputs(C, n, C, cuda)
+    ev = assert_solve_equals_twin(tst.stream_init_batch(STREAM_CFG, C, cuda), on, pm)
+    assert int(ev.count.sum()) > 0  # events were emitted
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("C", [1, 64, 130])
 def test_stream_machine_carried_state_bit_exact(cuda, C):
     on, pm = stream_inputs(C, 900, 100 + C, cuda)
-    st, _, _ = tst.stream_scan(STREAM_CFG, tst.stream_init_batch(STREAM_CFG, C, cuda),
-                               on[:, :437], pm[:, :437])
+    st = carried_state(STREAM_CFG, on, pm, 437)
     assert int((st.state == tst.TRACK).sum() + (st.state == tst.DETECT).sum()) == C
-    args, kw = machine_args(st, on[:, 437:], pm[:, 437:])
-    assert_machine_equals_twin(args, kw)
+    assert_solve_equals_twin(st, on[:, 437:].contiguous(), pm[:, 437:].contiguous())
 
 
 @pytest.mark.cuda
 def test_stream_machine_mid_track_and_short_series(cuda):
-    """A chunk that starts inside a track, and chunks of 0 to 9 blocks."""
+    """A chunk that starts inside a track, and chunks of 0 to 9 blocks; a
+    track of more than 32 blocks still open at the chunk's end."""
     on, pm = stream_inputs(3, 300, 7, cuda)
-    on[:, 120:160] += 9.0
-    st, _, _ = tst.stream_scan(STREAM_CFG, tst.stream_init_batch(STREAM_CFG, 3, cuda),
-                               on[:, :130], pm[:, :130])
+    on[:, 120:200] += 9.0
+    st = carried_state(STREAM_CFG, on, pm, 130)
     assert bool((st.state == tst.TRACK).all())
-    for n in (0, 1, 7, 8, 9, 170):
-        args, kw = machine_args(st, on[:, 130 : 130 + n], pm[:, 130 : 130 + n])
-        assert_machine_equals_twin(args, kw)
+    for n in (0, 1, 7, 8, 9, 50, 170):
+        assert_solve_equals_twin(st, on[:, 130 : 130 + n].contiguous(),
+                                 pm[:, 130 : 130 + n].contiguous())
+    st2 = tst.stream_scan(STREAM_CFG, st, on[:, 130:180], pm[:, 130:180])[0]
+    assert bool((st2.state == tst.TRACK).all()) and int(st2.tr_count.min()) > 32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seam", ["mid_init", "lock_window", "block_below_w"])
+def test_stream_solve_seams_bit_exact(cuda, seam):
+    """Seams a live feed can start at: inside Init (blocks 0-40 of a fresh
+    stream), inside a lock window that runs past the seam, and at i0 < w."""
+    on, pm = stream_inputs(4, 600, 21, cuda)
+    on[:, 150:190] += 9.0  # a track leaving at block 190: lock through ~247
+    n_before = {"mid_init": 17, "lock_window": 200, "block_below_w": 33}[seam]
+    st = carried_state(STREAM_CFG, on, pm, n_before)
+    if seam == "mid_init":
+        assert bool((st.state == tst.INIT).all())
+    if seam == "lock_window":
+        assert bool((st.state == tst.DETECT).all() and (st.locked_until_block >= 200).all())
+    assert_solve_equals_twin(st, on[:, n_before:].contiguous(), pm[:, n_before:].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,n,tile", [
+    (2, 20000, tsk.TILE),  # past one shared-memory tile (bulk copies, double-buffered)
+    (3, 1103, tsk.TILE),  # n not a multiple of 4: plain loads
+    (3, 3000, 256),  # many tiles
+    (2, 1101, 64),  # many tiles, ragged last tile, plain loads
+])
+def test_stream_solve_tiles_bit_exact(cuda, C, n, tile):
+    on, pm = stream_inputs(C, n, n, cuda)
+    on[:, n // 2 - 20 : n // 2 + 45] += 9.0  # a 65-block track across tiles
+    ev = assert_solve_equals_twin(tst.stream_init_batch(STREAM_CFG, C, cuda), on, pm, tile=tile)
+    assert int(ev.count.min()) > 0
+
+
+@pytest.mark.cuda
+def test_stream_solve_alternating_and_overflow(cuda):
+    """A series that crosses the threshold every block (about n episodes),
+    and a small event buffer that overflows."""
+    scfg = STREAM_CFG._replace(cap=16, min_dur_sec=0.2)
+    on, pm = alternating_inputs(700, cuda)
+    ev = assert_solve_equals_twin(tst.stream_init_batch(scfg, 2, cuda), on, pm, scfg)
+    assert int(ev.count[1]) > 16 and bool(ev.overflow[1]) and not bool(ev.overflow[0])
 
 
 @pytest.mark.cuda
@@ -284,25 +338,49 @@ def test_stream_fused_equals_scan_on_card(cuda):
 
 
 @pytest.mark.cuda
+def test_stream_fused_launches_only_k3(cuda):
+    """On the card the fused solve is one kernel launch and nothing else:
+    no gather, reduction, cumsum or scatter; one channel as well."""
+    from torch.profiler import ProfilerActivity, profile
+
+    on, pm = stream_inputs(8, 600, 9, cuda)
+    st0 = tst.stream_init_batch(STREAM_CFG, 8, cuda)
+    st1 = tst.stream_init(STREAM_CFG, cuda)
+    tst.stream_scan_fused_batch(STREAM_CFG, st0, on, pm)  # build outside the profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.2)  # a fresh tracer window can miss the first records
+        tst.stream_scan_fused_batch(STREAM_CFG, st0, on, pm)
+        tst.stream_scan_fused(STREAM_CFG, st1, on[3], pm[3])
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    assert [r.count for r in rows] == [2] and "stream_solve_kernel" in rows[0].key
+
+
+@pytest.mark.cuda
 def test_stream_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     on, pm = stream_inputs(4, 50, 1, cuda)
-    args, kw = machine_args(tst.stream_init_batch(STREAM_CFG, 4, cuda), on, pm)
-    on2 = args[0]
+    state = tuple(tst.stream_init_batch(STREAM_CFG, 4, cuda))
+    params = tst.solve_params(STREAM_CFG)
     bad = [
-        (0, on2.cpu()),  # device
-        (0, on2.double()),  # dtype
-        (0, torch.cat([on2, on2], 1)[:, ::2]),  # not contiguous
-        (0, on2.reshape(-1)),  # not 2-D
-        (1, args[1][:-1]),  # shape
-        (2, args[2].cpu()),  # device
-        (3, args[3][:7]),  # carry shape
-        (4, args[4].long()),  # carry dtype
+        (0, on.cpu()),  # device
+        (0, on.double()),  # dtype
+        (0, torch.cat([on, on], 1)[:, ::2]),  # not contiguous
+        (0, on.reshape(-1)),  # not 2-D
+        (1, pm[:-1]),  # shape
+        (1, pm.cpu()),  # device
+        (2, state[:-1]),  # a state leaf missing
+        (2, state[:2] + (state[2][:, :0],) + state[3:]),  # empty ring
+        (2, state[:3] + (state[3][:3],) + state[4:]),  # leaf shape
+        (2, state[:4] + (state[4].long(),) + state[5:]),  # leaf dtype
     ]
     for pos, value in bad:
-        a = list(args)
+        a = [on, pm, state]
         a[pos] = value
         with pytest.raises(ValueError):
-            tsk._launch(*a, **kw)
+            tsk._launch(*a, **params)
+    with pytest.raises(ValueError):
+        tsk._launch(on, pm, state, **params, tile=48)  # not a multiple of 32
 
 
 # ---- K2: band power ------------------------------------------------------------

@@ -11,6 +11,10 @@ than XLA does, and XLA may contract ``i·bs − t0`` into an FMA.
 Within the port: the fused solver (K3's plain twin on the CPU) equals the
 scan bit for bit, a chunked run equals an unchunked one bit for bit, and
 the per-block ``stream_step`` oracle equals the scan to float32 rounding.
+The twin's pieces are held bit for bit against independent oracles: the
+slot-order window sums against a numpy float32 replay of the live ring,
+and the whole solve against the block machine followed by a Python-loop
+compaction and the replayed ring.
 The CUDA kernel itself is held against the twin on a GPU by
 ``tests/test_torch_kernels_cuda.py`` and ``chip_smoke.py``.
 """
@@ -26,6 +30,7 @@ from meteor_scatter_tpu.config import DetectionConfig as JDetectionConfig
 from meteor_scatter_tpu.models import streaming as jst
 from meteor_scatter_tpu_torch.config import DetectionConfig
 from meteor_scatter_tpu_torch.models import streaming as tst
+from meteor_scatter_tpu_torch.ops.kernels import stream_kernel as tsk
 
 from test_streaming_headless import make_audio
 from test_streaming_jump import default_cfg, make_series
@@ -307,3 +312,119 @@ def test_cuda_state_requested_without_gpu_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         tst.stream_init(T_SCFG)
+
+
+def replay_ring(ring, i0, on, w, k_std):
+    """numpy float32 oracle of the prologue: the live ring replayed block by
+    block, each window summed left to right over slots 0 … w−1 (unwritten
+    slots add 0), then the block written into slot i mod w.  The square
+    root is torch's, as the twin's on the CPU (within an ulp of the
+    correctly rounded root there; on the card both sides round it
+    exactly).  Returns (base thresholds (C, n), the ring after the chunk)."""
+    f32 = np.float32
+    r, on = ring.copy(), on.astype(f32)
+    C, n = on.shape
+    bt = np.empty((C, n), f32)
+    rows = np.arange(C)
+    for t in range(n):
+        i = i0 + t
+        cnt = np.minimum(i, w)
+        s = np.zeros(C, f32)
+        s2 = np.zeros(C, f32)
+        for j in range(w):
+            s = (s + np.where(j < cnt, r[:, j], f32(0))).astype(f32)
+            s2 = (s2 + np.where(j < cnt, (r[:, j] * r[:, j]).astype(f32), f32(0))).astype(f32)
+        cnt_f = np.maximum(cnt, 1).astype(f32)
+        m, m2 = (s / cnt_f).astype(f32), (s2 / cnt_f).astype(f32)
+        var = np.maximum((m2 - (m * m).astype(f32)).astype(f32), f32(0))
+        std = torch.sqrt(torch.from_numpy(var)).numpy()
+        bt[:, t] = np.where(cnt > 0, (m + (f32(k_std) * std).astype(f32)).astype(f32), f32(np.nan))
+        r[rows, i % w] = on[:, t]
+    return bt, r
+
+
+def ring_case(case, C=3, n=150, w=40):
+    rng = np.random.default_rng(31)
+    on = (rng.standard_normal((C, n)) * 2.0 + 1.0).astype(np.float32)
+    ring = (rng.standard_normal((C, w)) * 3.0).astype(np.float32)  # unwritten slots hold junk
+    i0 = {"fresh": 0, "i0_below_w": 13, "carried": 1234}[case] + np.array([0, 1, 7])[:C]
+    if case == "fresh":
+        i0[:] = 0
+    return ring, i0.astype(np.int32), on
+
+
+@pytest.mark.parametrize("case", ["fresh", "i0_below_w", "carried"])
+def test_ring_base_thresholds_slot_order_oracle(case):
+    ring, i0, on = ring_case(case)
+    w = ring.shape[1]
+    bt, ext = tsk.ring_base_thresholds(torch.from_numpy(ring), torch.from_numpy(i0),
+                                       torch.from_numpy(on), w, 4.0)
+    want_bt, want_ring = replay_ring(ring, i0, on, w, 4.0)
+    assert_bits_equal((bt, tsk.final_ring(ext, torch.from_numpy(i0),
+                                          torch.from_numpy(i0 + on.shape[1]), w)),
+                      (torch.from_numpy(want_bt), torch.from_numpy(want_ring)))
+    assert bool(torch.isnan(bt[:, 0]).all()) == (case == "fresh")
+
+
+def composed_solve(scfg, state, on, pm):
+    """The solve as separate pieces: the prologue, the block machine on
+    time-major series, a Python loop that files each emit into its slot,
+    and the ring replayed block by block."""
+    kw = tst.solve_params(scfg)
+    cap, w = kw.pop("cap"), scfg.avg_win
+    bt, _ = tsk.ring_base_thresholds(state.ring, state.block_idx, on, w, kw.pop("k_std"))
+    carry_f = torch.stack([state.locked_threshold, state.track_start_sec, state.tr_sum,
+                           state.tr_sumsq, state.tr_min, state.tr_max, state.init_sum,
+                           state.psd_db_mean_from_init])
+    carry_i = torch.stack([state.state, state.locked_until_block, state.track_start_block,
+                           state.tr_count, state.init_count, state.block_idx])
+    ys, cf, ci = tsk.stream_machine_plain(on.t().contiguous(), pm.t().contiguous(),
+                                          bt.t().contiguous(), carry_f, carry_i, **kw)
+    emit, fields = ys[1].t().numpy(), [y.t().numpy() for y in ys[2:]]
+    C = on.shape[0]
+    ev = np.zeros((7, C, cap), np.float32)
+    count = np.zeros(C, np.int32)
+    for c in range(C):
+        for t in np.flatnonzero(emit[c]):
+            if count[c] < cap:
+                ev[:, c, count[c]] = [f[c, t] for f in fields]
+            count[c] += 1
+    _, ring = replay_ring(state.ring.numpy(), state.block_idx.numpy(), on.numpy(), w, scfg.k_std)
+    st = tst.StreamState(
+        state=ci[0], block_idx=ci[5], ring=torch.from_numpy(ring), locked_threshold=cf[0],
+        locked_until_block=ci[1], track_start_sec=cf[1], track_start_block=ci[2],
+        tr_count=ci[3], tr_sum=cf[2], tr_sumsq=cf[3], tr_min=cf[4], tr_max=cf[5],
+        init_sum=cf[6], init_count=ci[4], psd_db_mean_from_init=cf[7])
+    events = tst.StreamEvents(*(torch.from_numpy(e) for e in ev), count=torch.from_numpy(count),
+                              overflow=torch.from_numpy(count > cap))
+    return st, events, ys[0].t()
+
+
+@pytest.mark.parametrize("case", ["fresh", "mid_track", "overflow"])
+def test_solve_plain_equals_composed_solve(case):
+    scfg = T_SCFG._replace(cap=2 if case == "overflow" else 16)
+    on, pm = series(3, 520, 17, ((150, 170, 8.0), (260, 300, 9.0), (420, 460, 7.0)))
+    on, pm = torch.from_numpy(on), torch.from_numpy(pm)
+    state = tst.stream_init_batch(scfg, 3, "cpu")
+    if case == "mid_track":
+        state = tst.stream_scan(scfg, state, on[:, :280], pm[:, :280])[0]
+        assert bool((state.state == tst.TRACK).all())
+        on, pm = on[:, 280:].contiguous(), pm[:, 280:].contiguous()
+    st, ev, thr = tsk.stream_solve_plain(on, pm, tuple(state), **tst.solve_params(scfg))
+    assert_bits_equal((tst.StreamState(*st), tst.StreamEvents(*ev), thr),
+                      composed_solve(scfg, state, on, pm))
+    assert int(ev[7].min()) >= (2 if case == "mid_track" else 3)
+    assert bool(ev[8].all()) == (case == "overflow")
+
+
+def test_stream_solve_dispatch_by_device():
+    """A CPU tensor goes to the twin and never to the kernel; other devices
+    raise."""
+    on, pm = (torch.from_numpy(a) for a in series(2, 20, 3))
+    state = tuple(tst.stream_init_batch(T_SCFG, 2, "cpu"))
+    kw = tst.solve_params(T_SCFG)
+    assert_bits_equal(tsk.stream_solve(on, pm, state, **kw), tsk.stream_solve_plain(on, pm, state, **kw))
+    with pytest.raises(ValueError, match="CUDA"):
+        tsk._launch(on, pm, state, **kw)
+    with pytest.raises(ValueError, match="not supported"):
+        tsk.stream_solve(on.to("meta"), pm.to("meta"), state, **kw)
