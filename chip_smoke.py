@@ -13,8 +13,12 @@ non-zero (there is no CPU fallback):
 2. build         — compiles every kernel from ``csrc/`` with nvcc, one
    process per source, all started together.
 3. kernel_check  — each kernel against its plain PyTorch twin on the card at
-   the main paths' shapes, with stated tolerances, both timed with CUDA
-   events: K1 (adaptive solver), K3 (the fused streaming solve: prologue,
+   the main paths' shapes, with stated tolerances, both timed: K1 (the
+   adaptive solver's walk route, one cooperative launch across the SMs, at
+   a 1 h series, a first and a later chunk of a day, and on dense series: a
+   freeze that rarely lifts, one that never does, a 2 000-block window;
+   with the fix-up's counts; its time is the profiler's device time of the
+   kernel), K3 (the fused streaming solve: prologue,
    state machine, compaction and ring in one launch; bit-exact at 3 000 x
    64 fresh, 300 x 1 carried mid-track, 1 100 x 130, and at the seams and
    edges: mid-Init with n = 303, inside a lock window, a track open at the
@@ -24,8 +28,9 @@ non-zero (there is no CPU fallback):
    analyzer shape, with ``torch.matmul`` plus the same epilogue as a
    yardstick the port never calls).
 4. e2e           — a 24 h, 6 kHz, int16 WAV with a 1 s 1003 Hz tone every
-   47 s through ``apps.analyze.main`` (K1 launched once per chunk, every
-   tone detected, fused == parallel events).
+   47 s through ``apps.analyze.main`` (K1 launched once per chunk, by the
+   walk route, every tone detected, fused == parallel events); a profiled
+   warm run of the day.
 5. e2e_bandpower — the same day through ``fused_bandpower_delta`` (one K2
    launch), against the analyzer's band power.
 6. e2e_live      — a 24 h, 4 kHz, int16 WAV with a 1 s 1000 Hz tone every
@@ -208,34 +213,68 @@ def delta_series(n: int, seed: int) -> np.ndarray:
     return d
 
 
+CHUNK = 131072  # the fused solver's chunk (adaptive_kernel.MAX_FUSED_BLOCKS)
+# K1's cases: label -> (blocks, halo, solver parameters that differ from
+# SOLVER).  The first three are the main path's shapes (a 1 h recording, the
+# first and a later chunk of a day); the rest are dense series.
+K1_CASES = {
+    "1h": (18000, 0, {}),
+    "chunk_first": (CHUNK, 0, {}),
+    "chunk_haloed": (CHUNK, 600, {}),
+    "dense_k1.5": (CHUNK, 0, {"threshold_std_factor": 1.5}),
+    "never_lifting": (CHUNK, 0, {"fixed_threshold_blocks": 0}),
+    "window_2000": (CHUNK, 2000, {"window_blocks": 2000}),
+}
+
+
+def k1_args(label: str) -> tuple:
+    """The arguments of ``adaptive_kernel._launch`` for one K1 case, on the
+    card: a haloed case is a later chunk (i0 past the first chunk, frozen
+    for 40 blocks on entry, a carried threshold 1.5 dB over the fixed one)."""
+    import torch
+
+    n, halo, over = K1_CASES[label]
+    sv = {**SOLVER, **over}
+    k, w = sv["threshold_std_factor"], sv["window_blocks"]
+    dev = torch.device(DEVICE)
+    d = delta_series(n, seed=n + halo)
+    if sv["fixed_threshold_blocks"] == 0:
+        # block 0's threshold is 0: a block 0 above it opens a freeze at
+        # threshold 0, which half the blocks of the series then extend
+        d[0] = abs(d[0]) + 5.0
+    d = torch.from_numpy(d).to(dev)
+    fixed_thr = d.mean() + k * d.std(correction=0)
+    if halo:
+        i0 = CHUNK - w
+        carry_i = torch.tensor([i0, i0 + 40], dtype=torch.int32, device=dev)
+        carry_f = torch.stack([fixed_thr, fixed_thr + 1.5]).float()
+    else:
+        carry_i = torch.tensor([0, -1], dtype=torch.int32, device=dev)
+        carry_f = torch.stack([fixed_thr, fixed_thr]).float()
+    return (d, carry_i, carry_f, halo, k, w, sv["freeze_blocks_before"],
+            sv["freeze_blocks_after"], sv["fixed_threshold_blocks"], n)
+
+
 def phase_kernel_k1() -> dict:
-    """K1 (kernel) against its twin on the card, at the main path's shapes."""
+    """K1 (kernel) against its twin on the card, at the main path's shapes
+    and on dense series, each by the walk route and timed."""
     import torch
 
     from meteor_scatter_tpu_torch.ops.kernels import adaptive_kernel as ak
 
-    dev = torch.device(DEVICE)
-    w = SOLVER["window_blocks"]
-    k = SOLVER["threshold_std_factor"]
     cases = []
-    for label, n, halo in (("1h", 18000, 0), ("chunk_first", ak.MAX_FUSED_BLOCKS, 0),
-                           ("chunk_haloed", ak.MAX_FUSED_BLOCKS, w)):
-        d = torch.from_numpy(delta_series(n, seed=n + halo)).to(dev)
-        fixed_thr = d.mean() + k * d.std(correction=0)
-        if halo:  # a later chunk: i0 past the first chunk, frozen on entry
-            i0 = ak.MAX_FUSED_BLOCKS - w
-            carry_i = torch.tensor([i0, i0 + 40], dtype=torch.int32, device=dev)
-            carry_f = torch.stack([fixed_thr, fixed_thr + 1.5]).float()
-        else:
-            carry_i = torch.tensor([0, -1], dtype=torch.int32, device=dev)
-            carry_f = torch.stack([fixed_thr, fixed_thr]).float()
-        args = (d, carry_i, carry_f, halo, k, w, SOLVER["freeze_blocks_before"],
-                SOLVER["freeze_blocks_after"], SOLVER["fixed_threshold_blocks"], n)
+    for label in K1_CASES:
+        args = k1_args(label)
+        n, halo = args[0].shape[0], args[3]
+        walks = ak.walk_launches
         thr_k, ab_k, s_k, c_k = ak._launch(*args)
+        route = "walk" if ak.walk_launches == walks + 1 else "rounds"
+        untrusted, fixup_walks, walked = ak.last_fixup.tolist()
         thr_p, ab_p, s_p, c_p = ak.adaptive_solver_plain(*args)
         torch.cuda.synchronize()
         case = {
-            "case": label, "n": n, "halo": halo,
+            "case": label, "n": n, "halo": halo, "route": route,
+            "untrusted_seams": untrusted, "fixup_walks": fixup_walks, "fixup_blocks": walked,
             "above_equal": bool(torch.equal(ab_k, ab_p)),
             "s_incl_equal": bool(torch.equal(s_k, s_p)),
             "n_above": int(ab_p.sum()),
@@ -243,11 +282,12 @@ def phase_kernel_k1() -> dict:
             "thr_max_abs_err": float((thr_k - thr_p).abs().max()),
             "csm_max_abs_err": float((c_k - c_p).abs().max()),
             "csm_tol": CSM_RTOL * max(1.0, float(c_p.abs().max())),
-            "ms": cuda_ms(lambda: ak._launch(*args)),
+            "ms": kernel_device_ms(lambda: ak._launch(*args), "walk_kernel"),
+            "call_ms": cuda_ms(lambda: ak._launch(*args)),
             "plain_ms": cuda_ms(lambda: ak.adaptive_solver_plain(*args)),
         }
         case["ok"] = (
-            case["above_equal"] and case["s_incl_equal"]
+            route == "walk" and case["above_equal"] and case["s_incl_equal"]
             and case["thr_max_abs_err"] <= THR_TOL_DB
             and case["csm_max_abs_err"] <= case["csm_tol"]
         )
@@ -260,7 +300,7 @@ def phase_kernel_k1() -> dict:
     total, n = main_shape["n"], main_shape["n"] - main_shape["halo"]
     # the wrapper's inputs (series, two 2-word carries) and outputs (thr,
     # above as bytes, s_incl, csm); operations: the one-pass rolling stats
-    # and run sums (~16 per block) and one fixpoint round (the least work)
+    # and run sums (~16 per block) and one pass of the freeze recurrence
     return {
         "max_abs_err": max(c["thr_max_abs_err"] for c in cases),
         "ms": main_shape["ms"],
@@ -307,6 +347,7 @@ def timer_totals(text: str) -> dict:
 
 def phase_e2e(tmp: str) -> dict:
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from meteor_scatter_tpu_torch.apps import analyze
     from meteor_scatter_tpu_torch.ops.kernels import adaptive_kernel as ak
@@ -323,19 +364,20 @@ def phase_e2e(tmp: str) -> dict:
     # --- the main path, through the CLI entry point; counted launches ---
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ak.launches = 0
+    ak.launches = ak.walk_launches = 0
     log = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(log):
         rc = analyze.main([wav, "--out-csv", out["fused.csv"], "--out-audacity", out["fused.txt"],
                            "--device", DEVICE])
     main_wall = time.perf_counter() - t0
-    launches = ak.launches
+    launches, walk_launches = ak.launches, ak.walk_launches
     peak = torch.cuda.max_memory_allocated()
     if rc != 0:
         raise RuntimeError(f"analyze.main returned {rc}")
-    if launches != want_launches:
-        raise AssertionError(f"adaptive_solver launched {launches} times, expected {want_launches}")
+    if launches != want_launches or walk_launches != want_launches:
+        raise AssertionError(f"adaptive_solver launched {launches} times ({walk_launches} by the "
+                             f"walk route), expected {want_launches} walks")
     phases = timer_totals(log.getvalue())
 
     fused = read_rows(out["fused.csv"])
@@ -379,16 +421,31 @@ def phase_e2e(tmp: str) -> dict:
     )
     if len(res_warm.detections) != len(fused):
         raise AssertionError("warm fused run found a different number of events")
+    # --- and once more under the profiler: device busy share, K1's rows ---
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACER_SETTLE_S)
+        t0 = time.perf_counter()
+        analyze.proc_wav_file(wav, expected_sample_rate=None, impl="fused", device=DEVICE,
+                              verbose=False)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    rows = device_rows(prof)
+    k1_rows = [r for r in rows if "walk_kernel" in r[0]]
 
     e2e = {
         "phase": "e2e", "hours": HOURS, "samples": FS * HOURS * 3600, "blocks": n_blocks,
-        "synth_write_s": synth_s, "launches": launches, "want_launches": want_launches,
+        "synth_write_s": synth_s, "launches": launches, "walk_launches": walk_launches,
+        "want_launches": want_launches,
         "events": len(fused), "tones": len(starts), "tones_missed": 0,
         "fused_equals_parallel": True, "event_db_max_abs_err": db_err,
         "main_wall_s": main_wall, "main_phases_s": phases,
         "warm_fused_phases_s": dict(res_warm.timer.totals),
         "parallel_phases_s": dict(res_par.timer.totals),
         "peak_device_bytes": peak,
+        "profiled_wall_s": prof_wall, "profiled_device_busy_ms": sum(r[1] for r in rows),
+        "profiled_k1_ms": sum(r[1] for r in k1_rows),
+        "profiled_k1_launches": sum(r[2] for r in k1_rows),
+        "profiled_device_top": [[k, round(ms, 3), n] for k, ms, n in rows[:8]],
     }
     emit(e2e)
     return e2e

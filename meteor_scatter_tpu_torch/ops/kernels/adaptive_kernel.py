@@ -11,13 +11,20 @@ Dispatch is by the device of the series:
 
 * CUDA tensor → the hand-written kernel ``csrc/adaptive_solver.cu``, built
   at first use.  Whatever the kernel does not take raises; there is no
-  fallback to the twin.
+  fallback to the twin.  A round cap of at least the solved block count
+  (every app path passes one) takes the walk route: one cooperative launch
+  across the SMs that solves the freeze recurrence by a segmented walk and
+  gives the converged result.  A smaller cap takes the round route, one CTA
+  iterating the TPU kernel's fixpoint up to the cap.
 * CPU tensor → :func:`adaptive_solver_plain`, the same chunk solver in
   plain PyTorch (``cumsum``, ``cummax`` and a gather).  ``chip_smoke.py``
   also runs it on the GPU, as the reference the kernel is held against.
 
-``launches`` counts kernel launches, so a run can show that it went
-through the kernel.
+``launches`` counts kernel launches of both routes and ``walk_launches``
+those of the walk route, so a run can show that it went through the
+kernel, and which way.  ``last_fixup`` is, on the card, the walk route's
+last count of [untrusted seams, fix-up walks, blocks walked] (a view of the
+launch's scratch).
 
 One launch takes at most :data:`MAX_FUSED_BLOCKS` blocks, the JAX
 package's cap, so that the chunked path
@@ -35,8 +42,19 @@ import torch
 from meteor_scatter_tpu_torch.ops.kernels import _build
 
 MAX_FUSED_BLOCKS = 131072
+SEGMENT = 1024  # blocks of the series per CTA of the walk route
 
-launches = 0  # kernel launches so far; chip_smoke.py resets and reads it
+launches = 0  # kernel launches so far, both routes; chip_smoke.py resets and reads it
+walk_launches = 0  # of those, launches of the walk route
+last_fixup = None  # the walk route's fix-up counts of its last launch
+_GRID_TOO_LARGE, _NO_COOPERATIVE_LAUNCH = -1, -2  # ms_adaptive_walk's own error codes
+
+
+def walk_lead(freeze_after: int, segment: int = SEGMENT) -> int:
+    """Blocks before its segment at which a CTA starts its speculative walk:
+    two freezes and a warp, at most one segment."""
+    return min(2 * freeze_after + 32, segment)
+
 
 Scalar = Union[int, float, torch.Tensor]
 Result = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -50,6 +68,25 @@ def _shift(x: torch.Tensor, s: int, fill) -> torch.Tensor:
     if s < x.shape[0]:
         out[s:] = x[:-s]
     return out
+
+
+def windowed_threshold(d: torch.Tensor, i0, halo: int, k_std: float, window: int) -> torch.Tensor:
+    """m + k·std over ``d[max(0, i-W) : i)``, the current block excluded, as
+    the TPU kernel forms it: exclusive float prefix sums (inclusive sums
+    minus the block) and ``cs - shift(cs, W)``; 0 at absolute block 0,
+    where the window is empty.  ``i0`` is the absolute index of block
+    ``halo``."""
+    idx = torch.arange(d.shape[0], dtype=torch.int32, device=d.device)
+    iabs = idx - halo + i0
+    dd = d * d
+    cs = torch.cumsum(d, 0) - d
+    cs2 = torch.cumsum(dd, 0) - dd
+    cnt = torch.clamp(iabs, max=window).to(torch.float32)
+    safe = torch.clamp(cnt, min=1.0)
+    m = (cs - _shift(cs, window, 0.0)) / safe
+    m2 = (cs2 - _shift(cs2, window, 0.0)) / safe
+    std = torch.sqrt(torch.clamp(m2 - m * m, min=0.0))
+    return torch.where(cnt > 0, m + k_std * std, 0.0)
 
 
 def adaptive_solver_plain(
@@ -78,19 +115,7 @@ def adaptive_solver_plain(
     fixed_thr, thr_in = carry_f[0], carry_f[1]
     valid = idx >= halo
     iabs = idx - halo + i0
-
-    # rolling stats over delta[max(0, i-W) : i), current block excluded; the
-    # exclusive sums are inclusive sums minus the block, as in the kernel
-    dd = d * d
-    cs = torch.cumsum(d, 0) - d
-    cs2 = torch.cumsum(dd, 0) - dd
-    cnt = torch.clamp(iabs, max=window).to(torch.float32)
-    safe = torch.clamp(cnt, min=1.0)
-    m = (cs - _shift(cs, window, 0.0)) / safe
-    m2 = (cs2 - _shift(cs2, window, 0.0)) / safe
-    std = torch.sqrt(torch.clamp(m2 - m * m, min=0.0))
-    # cnt == 0 only at absolute block 0: empty-window stats give 0 there
-    windowed = torch.where(cnt > 0, m + k_std * std, 0.0)
+    windowed = windowed_threshold(d, i0, halo, k_std, window)
 
     new_freeze = torch.maximum(iabs + freeze_after, torch.clamp(iabs - freeze_before, min=0))
     in_fixed = iabs < fixed_blocks
@@ -133,8 +158,10 @@ def _launch(
     fixed_blocks: int,
     max_rounds: int,
 ) -> Result:
-    """One launch of ``csrc/adaptive_solver.cu`` on the current stream."""
-    global launches
+    """One launch of ``csrc/adaptive_solver.cu`` on the current stream, by
+    the walk route when ``max_rounds`` covers the solved blocks, else by the
+    round route."""
+    global launches, walk_launches, last_fixup
     if not d.is_cuda:
         raise ValueError(f"adaptive solver kernel takes a CUDA tensor, got one on {d.device}")
     total = d.shape[0] if d.dim() == 1 else -1
@@ -158,30 +185,49 @@ def _launch(
     thr = torch.empty(n, dtype=torch.float32, device=dev)
     s_incl = torch.empty(n, dtype=torch.int32, device=dev)
     csm = torch.empty(n, dtype=torch.float32, device=dev)
-    scratch = torch.empty(3 * total, dtype=torch.float32, device=dev)
     above = torch.empty(total, dtype=torch.bool, device=dev)
 
-    fn = _bind(_build.load("adaptive_solver"))
+    lib = _bind(_build.load("adaptive_solver"))
+    walk = max_rounds >= n  # the converged result: see the header of the .cu file
+    if walk:
+        scratch = torch.empty(lib.ms_adaptive_walk_scratch_words(total), dtype=torch.int32,
+                              device=dev)
+        fn, lead_or_cap = lib.ms_adaptive_walk, walk_lead(freeze_after)
+    else:
+        scratch = torch.empty(3 * total, dtype=torch.float32, device=dev)
+        fn, lead_or_cap = lib.ms_adaptive_rounds, max_rounds
     with torch.cuda.device(dev):
         err = fn(
             d.data_ptr(), total, halo, carry_i.data_ptr(), carry_f.data_ptr(),
-            window, freeze_before, freeze_after, fixed_blocks, float(k_std), max_rounds,
+            window, freeze_before, freeze_after, fixed_blocks, float(k_std), lead_or_cap,
             scratch.data_ptr(), above.data_ptr(), thr.data_ptr(), s_incl.data_ptr(),
             csm.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
+    if err == _GRID_TOO_LARGE:
+        raise RuntimeError(
+            f"adaptive solver: {-(-total // SEGMENT)} CTAs for {total} blocks cannot all be "
+            f"co-resident on {torch.cuda.get_device_name(dev)} (cooperative launch)")
+    if err == _NO_COOPERATIVE_LAUNCH:
+        raise RuntimeError("adaptive solver: the device has no cooperative launch")
     if err != 0:
         raise RuntimeError(f"adaptive solver kernel launch failed: CUDA error {err}")
     launches += 1
+    if walk:
+        walk_launches += 1
+        last_fixup = scratch[:3]
     return thr, above[halo:], s_incl, csm
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.ms_adaptive_solver
-    if fn.argtypes is None:
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    if lib.ms_adaptive_walk.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, i, p, p, i, i, i, i, ctypes.c_float, i, p, p, p, p, p, p]
-        fn.restype = ctypes.c_int
-    return fn
+        for fn in (lib.ms_adaptive_walk, lib.ms_adaptive_rounds):
+            # the int before the scratch is the walk's lead or the round cap
+            fn.argtypes = [p, i, i, p, p, i, i, i, i, ctypes.c_float, i, p, p, p, p, p, p]
+            fn.restype = ctypes.c_int
+        lib.ms_adaptive_walk_scratch_words.argtypes = [i]
+        lib.ms_adaptive_walk_scratch_words.restype = ctypes.c_longlong
+    return lib
 
 
 def _run(delta_haloed, i0, freeze_in, fixed_thr, thr_in, halo, k_std, window,

@@ -9,7 +9,9 @@ machine without JAX.  There, from the repo root (``--noconftest`` skips
 Tests marked ``cuda`` need a GPU and skip without one.  K1 (adaptive
 solver) and its twin take float prefix sums in different orders, so the
 above mask and ``s_incl`` must be equal, and ``thr`` / ``csm`` agree to
-``THR_ATOL`` / ``CSM_RTOL`` (the reasoning is in ``chip_smoke.py``).  K3
+``THR_ATOL`` / ``CSM_RTOL`` (the reasoning is in ``chip_smoke.py``), on
+both of K1's routes: the walk (a round cap covering the solved blocks) and
+the rounds (a smaller cap).  K3
 (the fused streaming solve) is bit-exact against its twin on thresholds,
 every event slot, count, overflow, every state leaf and the ring.  K2 (band power) sums its FP32 product in another order
 than the twin's ``torch.matmul``: dB levels agree to the JAX package's own
@@ -105,6 +107,74 @@ def test_haloed_chunk_matches_twin(cuda, freeze_in, thr_shift):
     d = torch.from_numpy(series(131072, 7)).to(cuda)
     args = solver_args(d, halo=600, i0=131072 - 600, freeze_in=freeze_in, thr_shift=thr_shift)
     assert_kernel_equals_twin(args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "label,n,kw",
+    [
+        ("straddling_episodes", 20000, {}),  # freezes opened just before seams
+        ("dense_k1.5", 131072, dict(k=1.5)),  # freezes that rarely lift
+        ("never_lifting", 131072, dict(fixed=0)),  # one freeze at 0 dB over the chunk
+        ("fa_2000", 131072, dict(fa=2000)),  # freezes longer than the warm-up and a segment
+        ("window_2000", 131072, dict(window=2000, halo=2000, i0=131072 - 2000,
+                                     freeze_in=131072 - 2000 + 40, thr_shift=1.5)),
+        ("ragged_100001", 100001, {}),
+        ("largest_grid_131672", 131672, {}),  # 129 CTAs
+    ],
+)
+def test_walk_seams_and_density_match_twin(cuda, label, n, kw):
+    """The walk route at its seams and on dense data, where speculation and
+    truth disagree and the fix-up re-walks."""
+    d = series(n, n + 1)
+    if label == "straddling_episodes":
+        for s0 in range(tak.SEGMENT, n, 3 * tak.SEGMENT):
+            d[s0 - 3 : s0 + 2] += 60.0
+    if label == "never_lifting":
+        d[0] = abs(d[0]) + 5.0  # above block 0's zero threshold
+    d = torch.from_numpy(d).to(cuda)
+    walks = tak.walk_launches
+    ab = assert_kernel_equals_twin(solver_args(d, **kw))
+    assert tak.walk_launches == walks + 1
+    untrusted, fixup_walks, walked = tak.last_fixup.tolist()
+    if label in ("dense_k1.5", "never_lifting", "fa_2000"):
+        assert untrusted > 0 and fixup_walks > 0 and walked > 0
+    if label == "never_lifting":
+        assert float(ab.float().mean()) > 0.3 and walked > 0.9 * n
+    if label == "straddling_episodes":
+        assert all(bool(ab[s0 - 3 : s0 + 2].all()) for s0 in range(tak.SEGMENT, n, 3 * tak.SEGMENT))
+
+
+@pytest.mark.cuda
+def test_route_by_round_cap(cuda):
+    """A cap that covers the solved blocks (the app paths' cap) walks; a
+    smaller one iterates rounds.  Both count in ``launches``."""
+    d = torch.from_numpy(series(5000, 11)).to(cuda)
+    for args, walks in (
+        (solver_args(d), True),
+        (solver_args(d, max_rounds=4999), False),
+        (solver_args(d, k=1.5, max_rounds=1), False),
+        (solver_args(d, k=1.5, max_rounds=2), False),
+        (solver_args(d, halo=600, i0=9400, max_rounds=4400), True),
+    ):
+        before, walks_before = tak.launches, tak.walk_launches
+        tak._launch(*args)
+        assert tak.launches == before + 1
+        assert tak.walk_launches == walks_before + int(walks)
+    walks_before = tak.walk_launches
+    tak.adaptive_solver_fused(d, 4.0, 600, 15, 100, 50)
+    assert tak.walk_launches == walks_before + 1
+
+
+@pytest.mark.cuda
+def test_grid_past_co_residency_raises(cuda):
+    """4 096 segments cannot all be resident on the card at once: the
+    cooperative launch is refused and the wrapper raises, with no fallback."""
+    d = torch.zeros(4 << 20, device=cuda)
+    before = tak.launches
+    with pytest.raises(RuntimeError, match="co-resident"):
+        tak._launch(*solver_args(d))
+    assert tak.launches == before
 
 
 @pytest.mark.cuda
