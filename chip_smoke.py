@@ -43,6 +43,16 @@ non-zero (there is no CPU fallback):
    launch, and the profiled solve shows K3 as its only device row),
    events bit-equal to the scan twin's, every station's tone found,
    aggregate samples/s.
+8. e2e_frontend  — ``apps.frontend.main`` on a 60 s, 2 MS/s capture of 8
+   stations, real (channelize /200, resample x3/5 to 6 kHz) and ``--iq``:
+   every burst after the 10 s fixed start found, no overflow; on a 30 s cut
+   the stages timed one by one and the card's events equal to the CPU's.
+9. e2e_frontend_iq — BASELINE config 4 at spec: 60 s of 2 MS/s I/Q, 8
+   stations, uploaded pre-framed, through ``channelize_iq_frames`` +
+   ``stream_front_headless`` + ``stream_scan_fused_batch`` (one K3 launch),
+   fused == scan bit for bit, pre-framed == flat events, every burst after
+   the 8 s initial wait found; complex samples/s with and without the
+   upload, profile rows and the bank GEMM's bound.
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after.  The last three lines are the ``nvidia-smi`` line, one
@@ -105,8 +115,26 @@ STATIONS, STATION_SECONDS = 64, 600.0
 # (tests/test_pallas_kernels.py): band, noise, delta.
 K2_ATOL = (2e-3, 2e-3, 4e-3)
 # A fresh profiler window can miss the first kernel records; the timed
-# work starts this long after the window opens.
+# work starts this long after the window opens.  Even so the tracer has
+# kept as few as 9 of 20 launches of a window, so a count of records is
+# checked only against the launches made (at least one, at most all).
 TRACER_SETTLE_S = 0.2
+# The wideband front end (BASELINE configs 3 and 4): a 2 MS/s capture of 8
+# stations through apps.frontend.main (real: 100 kHz + 50 kHz i; I/Q:
+# 50 kHz (i - 4), or 25 kHz for 0), and a 30 s cut of the same captures on
+# the card and on the CPU.
+FRONTEND_FS = 2_000_000.0
+FRONTEND_STATIONS, FRONTEND_BASE_HZ, FRONTEND_SPACING_HZ = 8, 100_000.0, 50_000.0
+FRONTEND_SECONDS, FRONTEND_CUT_SECONDS = 60.0, 30.0
+FRONTEND_FIXED_INIT_SEC = 10.0  # detect_channels' fixed start: bursts after it are found
+# Card vs CPU event means: delta series whose float32 products sum in other
+# orders (the port against the JAX package on the CPU: up to ~2e-5 dB).
+FRONTEND_DB_TOL = 1e-3
+EVENT_CAP = 512  # detect_channels' buffer: a count below it means no overflow
+# BASELINE config 4 at spec (the JAX package's bench.py::frontend_iq_pipeline):
+# 2 MS/s I/Q, 8 stations, 1000 Hz tone at 4 kHz audio, decimation 500,
+# 2 001 taps, 1 500 Hz channels, 60 s with 4 bursts a station (seed 3).
+IQ_SECONDS, IQ_AUDIO_RATE, IQ_DECIM, IQ_NUMTAPS, IQ_BANDWIDTH = 60.0, 4000, 500, 2001, 1500.0
 # Card peaks for the bound (H100 SXM data sheet): HBM bytes/s, FP32 FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -130,7 +158,14 @@ KERNELS = {
 }
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    """One JSON line; a phase's line carries ``t_s``, the seconds since the
+    script started."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -499,7 +534,7 @@ def kernel_device_ms(fn, kernel: str, reps: int = 20) -> float:
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages() if kernel in e.key and e.self_device_time_total > 0]
     count = sum(e.count for e in rows)
-    if not reps // 2 <= count <= reps:  # the tracer may drop a record at the window's edge
+    if not 1 <= count <= reps:  # the tracer may drop records (TRACER_SETTLE_S)
         raise AssertionError(f"the profile shows {[(e.key, e.count) for e in rows]} for {kernel}")
     return sum(e.self_device_time_total for e in rows) / count / 1e3
 
@@ -896,8 +931,8 @@ def phase_e2e_stations() -> dict:
         return st.stream_scan_fused_batch(scfg, st0, o, p)
 
     total_ms = cuda_ms(pipeline, warmup=2, reps=9)
-    # twenty solves alone: K3 is the only device row (10 to 20 launches of
-    # it, should the tracer miss a record at the window's edge)
+    # twenty solves alone: K3 is the only device row (1 to 20 launches of
+    # it, as the tracer may drop records)
     reps = 20
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         time.sleep(TRACER_SETTLE_S)
@@ -912,7 +947,7 @@ def phase_e2e_stations() -> dict:
         torch.cuda.synchronize()
     rows = device_rows(prof)
     if (len(solve_rows) != 1 or "stream_solve_kernel" not in solve_rows[0][0]
-            or not reps // 2 <= solve_rows[0][2] <= reps):
+            or not 1 <= solve_rows[0][2] <= reps):
         raise AssertionError(f"stations: the profiled solves ran {solve_rows}, not K3 alone "
                              f"(pipeline rows: {[(k, c) for k, _, c in rows]})")
     out = {
@@ -926,6 +961,237 @@ def phase_e2e_stations() -> dict:
         "profiled_device_ms": sum(r[1] for r in rows),
         "profiled_device_top": [[k, round(ms, 3), c] for k, ms, c in rows[:10]],
         "profiled_solve_rows": [[k, ms, c] for k, ms, c in solve_rows],
+    }
+    emit(out)
+    return out
+
+
+def zero_launch_counts() -> None:
+    from meteor_scatter_tpu_torch.ops.kernels import adaptive_kernel as ak
+    from meteor_scatter_tpu_torch.ops.kernels import bandpower_kernel as bk
+    from meteor_scatter_tpu_torch.ops.kernels import stream_kernel as sk
+
+    ak.launches = ak.walk_launches = bk.launches = sk.launches = 0
+
+
+def launch_counts() -> dict:
+    from meteor_scatter_tpu_torch.ops.kernels import adaptive_kernel as ak
+    from meteor_scatter_tpu_torch.ops.kernels import bandpower_kernel as bk
+    from meteor_scatter_tpu_torch.ops.kernels import stream_kernel as sk
+
+    return {"adaptive_solver": ak.launches, "bandpower": bk.launches, "stream_machine": sk.launches}
+
+
+STATION_LINE = re.compile(r"^station (\d+) \(.*?\): (\d+) events (\[.*?\]) \(truth: (\[.*\])\)$", re.M)
+
+
+def bursts_missed(events, truth, after_sec: float, within_sec: float = 0.5) -> list:
+    """Bursts (t0, dur) starting after ``after_sec`` that no event starts
+    within ``within_sec`` of."""
+    starts = np.array([e[0] for e in events])
+    return [t0 for t0, _ in truth
+            if t0 > after_sec and not (starts.size and np.abs(starts - t0).min() < within_sec)]
+
+
+def events_to_host(ev) -> list:
+    """Per channel, the valid rows of an ``Events`` as numpy arrays."""
+    f = [t.cpu().numpy() for t in ev]
+    return [tuple(a[c, : int(f[3][c])] for a in f[:3]) for c in range(f[3].shape[0])]
+
+
+def phase_e2e_frontend() -> dict:
+    """BASELINE configs 3 and 4 through the CLI: ``apps.frontend.main`` on a
+    60 s, 2 MS/s real capture of 8 stations (channelize /200, resample
+    x3/5 to 6 kHz, band power, the fixpoint detector), and again with
+    ``--iq``; then a 30 s cut of the same captures stage by stage on the
+    card and through the same entry points on the CPU, events compared."""
+    import ast
+
+    import torch
+
+    from meteor_scatter_tpu_torch.apps import frontend as fe
+    from meteor_scatter_tpu_torch.models import adaptive
+    from meteor_scatter_tpu_torch.ops.fir import resample_poly
+
+    out = {"phase": "e2e_frontend", "fs": FRONTEND_FS, "stations": FRONTEND_STATIONS}
+    fs_i = int(FRONTEND_FS)
+    decim, up, down = fe._stages(fs_i, 6000, 2500.0)
+    for iq in (False, True):
+        label = "iq" if iq else "real"
+        argv = ["--fs", str(FRONTEND_FS), "--seconds", str(FRONTEND_SECONDS),
+                "--stations", str(FRONTEND_STATIONS), "--base-freq", str(FRONTEND_BASE_HZ),
+                "--spacing", str(FRONTEND_SPACING_HZ), "--device", DEVICE] + (["--iq"] if iq else [])
+        # --- the main path, through the CLI entry point ---
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launch_counts()
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            rc = fe.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        if rc != 0:
+            raise RuntimeError(f"frontend.main {argv} returned {rc}")
+        rows = STATION_LINE.findall(log.getvalue())
+        if len(rows) != FRONTEND_STATIONS:
+            raise AssertionError(f"frontend.main printed {len(rows)} station lines:\n{log.getvalue()}")
+        missed, counts = [], []
+        for c, cnt, spans, truth in rows:
+            events = [(float(a), float(b)) for a, b in re.findall(r"\[([0-9.]+),([0-9.]+)\]s", spans)]
+            counts.append(int(cnt))
+            missed += [(int(c), t0_) for t0_ in
+                       bursts_missed(events, ast.literal_eval(truth), FRONTEND_FIXED_INIT_SEC)]
+        if missed or max(counts) >= EVENT_CAP:
+            raise AssertionError(f"frontend {label}: bursts missed {missed}, counts {counts}")
+
+        # --- a 30 s cut: the stages one by one on the card, then the CPU ---
+        freqs = fe.station_freqs(FRONTEND_STATIONS, FRONTEND_BASE_HZ, FRONTEND_SPACING_HZ, iq)
+        centers = np.asarray(freqs) - fe.TONE_FREQ
+        if iq:
+            x, x_im, _ = fe.synth_wideband_iq(FRONTEND_FS, FRONTEND_CUT_SECONDS, freqs)
+        else:
+            (x, _), x_im = fe.synth_wideband(FRONTEND_FS, FRONTEND_CUT_SECONDS, freqs), None
+        audio = fe.iq_frontend(x, FRONTEND_FS, freqs, x_im=x_im, device=DEVICE)
+        ev_card, delta = fe.detect_channels(audio)
+        stages = {}
+        for _ in range(2):  # the second, warm, pass is the one kept
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bank = fe._bank(x, x_im, FRONTEND_FS, centers, 2500.0, decim, 513, DEVICE)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            audio_s = resample_poly(bank, up, down)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            fe.detect_channels(audio_s)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            stages = {"channelize_with_upload_s": t1 - t0, "resample_s": t2 - t1, "detect_s": t3 - t2}
+        _, _, rounds = adaptive._fixpoint(delta, **SOLVER)
+        ev_cpu, _ = fe.detect_channels(fe.iq_frontend(x, FRONTEND_FS, freqs, x_im=x_im, device="cpu"))
+        card, cpu = events_to_host(ev_card), events_to_host(ev_cpu)
+        same = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                   for a, b in zip(card, cpu)) and bool(
+            torch.equal(ev_card.overflow.cpu(), ev_cpu.overflow))
+        db_err = max((float(np.abs(a[2] - b[2]).max()) for a, b in zip(card, cpu) if a[2].size),
+                     default=0.0)
+        n_cut = sum(a[0].size for a in card)
+        if not same or db_err > FRONTEND_DB_TOL or n_cut == 0:
+            raise AssertionError(f"frontend {label} 30 s cut: card and CPU events differ "
+                                 f"(equal starts/stops {same}, dB err {db_err}, {n_cut} events)")
+        out[label] = {
+            "seconds": FRONTEND_SECONDS, "main_wall_s": wall, "launches": launches,
+            "peak_device_bytes": peak, "events_per_station": counts, "bursts_missed": 0,
+            "cut_seconds": FRONTEND_CUT_SECONDS, "cut_events": n_cut,
+            "cut_card_equals_cpu": True, "cut_event_db_max_abs_err": db_err,
+            "cut_stage_wall_s": stages, "fixpoint_rounds": rounds,
+            "audio_shape": list(audio.shape),
+        }
+        del audio, audio_s, bank, delta, x, x_im
+        torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+def phase_e2e_frontend_iq() -> dict:
+    """BASELINE config 4 at spec: 60 s of 2 MS/s I/Q, 8 stations, uploaded
+    pre-framed, through ``channelize_iq_frames`` → ``stream_front_headless``
+    → ``stream_scan_fused_batch`` (one K3 launch for the 8 stations)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from meteor_scatter_tpu_torch.apps import frontend as fe
+    from meteor_scatter_tpu_torch.models import streaming as st
+    from meteor_scatter_tpu_torch.ops import fir
+
+    fs = int(FRONTEND_FS)
+    tone = LIVE_TONE_HZ
+    freqs = fe.station_freqs(FRONTEND_STATIONS, FRONTEND_BASE_HZ, FRONTEND_SPACING_HZ, True)
+    centers = np.asarray([f - tone for f in freqs])
+    t0 = time.perf_counter()
+    x_re, x_im, truth = fe.synth_wideband_iq(fs, IQ_SECONDS, freqs, bursts_per_station=4, seed=3)
+    synth_s = time.perf_counter() - t0
+    cfg = live_config()
+    scfg = st.StreamConfig.from_config(cfg)
+    plan, tables = fir.channel_bank_plan(x_re.size, fs, centers, IQ_BANDWIDTH, IQ_DECIM,
+                                         IQ_NUMTAPS, device=DEVICE)
+    t0 = time.perf_counter()
+    f_host = fir.frame_capture_host(np.stack([x_re, x_im]), plan)
+    frame_s = time.perf_counter() - t0
+    f = torch.from_numpy(f_host).to(DEVICE)
+    st0 = st.stream_init_batch(scfg, len(freqs), DEVICE)
+
+    def pipeline(frames):
+        audio, _ = fir.channelize_iq_frames(frames, tables, plan)
+        on, pm, _ = st.stream_front_headless(cfg, audio, IQ_AUDIO_RATE)
+        return on, pm, st.stream_scan_fused_batch(scfg, st0, on, pm)
+
+    # --- the main path, once, counted ---
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    on, pm, (st_f, ev_f, thr_f) = pipeline(f)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if launches != {"adaptive_solver": 0, "bandpower": 0, "stream_machine": 1}:
+        raise AssertionError(f"frontend_iq launched {launches}, expected K3 once")
+
+    # --- the scan twin on the same series: bit for bit ---
+    st_s, ev_s, thr_s = st.stream_scan(scfg, st0, on, pm)
+    if not (all(bits_equal(a, b) for a, b in zip(ev_f, ev_s))
+            and all(bits_equal(a, b) for a, b in zip(st_f, st_s)) and bits_equal(thr_f, thr_s)):
+        raise AssertionError("frontend_iq: fused and scan outputs differ")
+    # --- the flat capture through channelize_iq: the same events ---
+    audio_flat, _ = fir.channelize_iq(torch.from_numpy(x_re).to(DEVICE),
+                                      torch.from_numpy(x_im).to(DEVICE), fs, centers,
+                                      IQ_BANDWIDTH, IQ_DECIM, IQ_NUMTAPS)
+    on2, pm2, _ = st.stream_front_headless(cfg, audio_flat, IQ_AUDIO_RATE)
+    ev_flat = st.stream_scan_fused_batch(scfg, st0, on2, pm2)[1]
+    if not all(bits_equal(a, b) for a, b in zip(ev_f, ev_flat)):
+        raise AssertionError("frontend_iq: the pre-framed and flat chains' events differ")
+    del audio_flat, on2, pm2
+    counts = ev_f.count.cpu().numpy()
+    t0s = ev_f.time_start.cpu().numpy()
+    missed = [(c, t) for c in range(len(freqs))
+              for t in bursts_missed([(s,) for s in t0s[c, : counts[c]]], truth[c],
+                                     scfg.init_wait_sec)]
+    if missed or bool(ev_f.overflow.any()):
+        raise AssertionError(f"frontend_iq: bursts missed {missed[:8]}, overflow "
+                             f"{ev_f.overflow.tolist()}")
+
+    # --- throughput: from the frames on the card, and with the upload ---
+    n = x_re.size
+    ms = cuda_ms(lambda: pipeline(f), warmup=2, reps=9)
+    ms_upload = cuda_ms(lambda: pipeline(torch.from_numpy(f_host).to(DEVICE)), warmup=1, reps=9)
+    reps = 5
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACER_SETTLE_S)
+        for _ in range(reps):
+            pipeline(f)
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    # the bank GEMM alone, as the bank takes it: (2·C·A, q) @ frames^T (q, m), twice, FP32
+    hh = tables[0]
+    rows_m, q, cols = 2 * plan["m"], plan["q"], hh.shape[1]
+    gemm_ms = cuda_ms(lambda: torch.matmul(hh.t(), f.transpose(-1, -2)), warmup=2, reps=9)
+    gemm = bound(4 * (rows_m * q + q * cols + rows_m * cols), 2.0 * rows_m * q * cols)
+    out = {
+        "phase": "e2e_frontend_iq", "fs": fs, "seconds": IQ_SECONDS, "stations": len(freqs),
+        "complex_samples": n, "frames": list(f.shape), "audio_rate": IQ_AUDIO_RATE,
+        "blocks": int(on.shape[1]), "synth_s": synth_s, "frame_host_s": frame_s,
+        "launches": launches["stream_machine"], "peak_device_bytes": peak,
+        "events": int(counts.sum()), "bursts_missed": 0, "fused_equals_scan": True,
+        "preframed_equals_flat": True,
+        "pipeline_ms": ms, "complex_samples_per_s": n / (ms / 1e3),
+        "pipeline_with_upload_ms": ms_upload, "complex_samples_per_s_with_upload": n / (ms_upload / 1e3),
+        "bank_gemm_ms": gemm_ms, "bank_gemm_bound": gemm,
+        "bank_gemm_shape": [rows_m, q, cols],
+        "profiled_calls": reps, "profiled_device_ms": sum(r[1] for r in rows),
+        "profiled_device_top": [[k[:160], round(ms_, 4), c] for k, ms_, c in rows[:12]],
     }
     emit(out)
     return out
@@ -963,12 +1229,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         e2e_live = phase_e2e_live(tmp)
     e2e_st = phase_e2e_stations()
+    phase_e2e_frontend()
+    e2e_fiq = phase_e2e_frontend_iq()
     loaded = port_modules_loaded_from_jax()
     if loaded:
         raise AssertionError(f"the port loaded JAX or the JAX package: {loaded[:5]}")
 
     launches = {"adaptive_solver": e2e["launches"], "bandpower": e2e_bp["launches"],
-                "stream_machine": e2e_live["launches"] + e2e_st["launches"]}
+                "stream_machine": e2e_live["launches"] + e2e_st["launches"] + e2e_fiq["launches"]}
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(nvidia_smi_line())
     emit({"kernels": [{"name": name, **KERNELS[name], "launches": launches[name], **records[name]}

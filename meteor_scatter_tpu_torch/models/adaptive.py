@@ -60,26 +60,51 @@ def adaptive_thresholds_parallel(
     equals the sequential solution (after round k the solution is exact up
     to the k-th freeze episode).
 
-    Returns (thresholds, above) in ``delta``'s dtype and device.
+    ``delta`` is one series ``(B,)`` or a batch ``(..., B)`` solved row by
+    row (the reference's ``jax.vmap``): every statistic is taken over the
+    last axis, and one loop runs until no row changes.
+
+    Returns (thresholds, above) in ``delta``'s shape, dtype and device.
     """
+    thr, above, _ = _fixpoint(
+        delta, threshold_std_factor, window_blocks, freeze_blocks_before,
+        freeze_blocks_after, fixed_threshold_blocks, max_rounds,
+    )
+    return thr, above
+
+
+def _fixpoint(
+    delta: torch.Tensor,
+    threshold_std_factor: float,
+    window_blocks: int,
+    freeze_blocks_before: int,
+    freeze_blocks_after: int,
+    fixed_threshold_blocks: int,
+    max_rounds: int | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """:func:`adaptive_thresholds_parallel` and the number of rounds it ran
+    (each round waits once on the host for its change test)."""
     dtype = delta.dtype
-    n = delta.shape[0]
+    n = delta.shape[-1]
     w = window_blocks
     if max_rounds is None:
         max_rounds = n
 
-    fixed_thr = (delta.mean() + threshold_std_factor * delta.std(correction=0)).to(dtype)
+    fixed_thr = (
+        delta.mean(-1, keepdim=True)
+        + threshold_std_factor * delta.std(-1, correction=0, keepdim=True)
+    ).to(dtype)
 
     # rolling-window stats (current block excluded) via prefix sums
-    zero = delta.new_zeros(1)
-    cs = torch.cat([zero, torch.cumsum(delta, 0)])
-    cs2 = torch.cat([zero, torch.cumsum(delta * delta, 0)])
+    zero = delta.new_zeros(delta.shape[:-1] + (1,))
+    cs = torch.cat([zero, torch.cumsum(delta, -1)], -1)
+    cs2 = torch.cat([zero, torch.cumsum(delta * delta, -1)], -1)
     i = torch.arange(n, device=delta.device)
     lo = torch.clamp(i - w, min=0)
     cnt = (i - lo).to(dtype)
     safe = torch.clamp(cnt, min=1)
-    m = (cs[i] - cs[lo]) / safe
-    m2 = (cs2[i] - cs2[lo]) / safe
+    m = (cs[..., i] - cs[..., lo]) / safe
+    m2 = (cs2[..., i] - cs2[..., lo]) / safe
     std = torch.sqrt(torch.clamp(m2 - m * m, min=0))
     # cnt==0 only at block 0: the sequential scan computes 0+k*0 = 0 there
     windowed = torch.where(cnt > 0, m + threshold_std_factor * std, 0.0)
@@ -89,14 +114,14 @@ def adaptive_thresholds_parallel(
 
     def thresholds_from(above):
         f = torch.where(above, new_freeze, -1)
-        freeze_until = torch.cummax(f, 0).values  # state after block i
-        freeze_prev = torch.cat([f.new_full((1,), -1), freeze_until[:-1]])
+        freeze_until = torch.cummax(f, -1).values  # state after block i
+        freeze_prev = torch.cat([f.new_full(f.shape[:-1] + (1,), -1), freeze_until[..., :-1]], -1)
         updatable = (i > freeze_prev) & ~in_fixed
-        last_upd = torch.cummax(torch.where(updatable, i, -1), 0).values
-        frozen = torch.where(last_upd >= 0, windowed[last_upd.clamp(min=0)], fixed_thr)
+        last_upd = torch.cummax(torch.where(updatable, i, -1), -1).values
+        frozen = torch.where(last_upd >= 0, windowed.gather(-1, last_upd.clamp(min=0)), fixed_thr)
         return torch.where(in_fixed, fixed_thr, frozen).to(dtype)
 
-    above = delta > thresholds_from(torch.zeros(n, dtype=torch.bool, device=delta.device))
+    above = delta > thresholds_from(torch.zeros(delta.shape, dtype=torch.bool, device=delta.device))
     changed = bool(above.any())
     rounds = 1
     while changed and rounds < max_rounds:
@@ -105,7 +130,7 @@ def adaptive_thresholds_parallel(
         above = new
         rounds += 1
     thr = thresholds_from(above)
-    return thr, delta > thr
+    return thr, delta > thr, rounds
 
 
 def detect_adaptive(

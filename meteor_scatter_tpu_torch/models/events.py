@@ -8,7 +8,7 @@ chunked GPU run never waits on the host between chunks.
 
 JAX's ``.at[i].set(v, mode="drop")`` becomes a ``scatter_`` into a buffer
 with one spare slot that collects the dropped writes and is cut off;
-``segment_sum`` becomes ``index_add_`` the same way.
+``segment_sum`` becomes ``scatter_add_`` the same way.
 """
 
 from __future__ import annotations
@@ -29,15 +29,15 @@ class Events(NamedTuple):
     more than the capacity were found.
     """
 
-    start: torch.Tensor  # int32 [cap]
-    stop: torch.Tensor  # int32 [cap] (exclusive)
-    db_mean: torch.Tensor  # float [cap]
-    count: torch.Tensor  # int32 scalar
-    overflow: torch.Tensor  # bool scalar
+    start: torch.Tensor  # int32 [..., cap]
+    stop: torch.Tensor  # int32 [..., cap] (exclusive)
+    db_mean: torch.Tensor  # float [..., cap]
+    count: torch.Tensor  # int32 [...]
+    overflow: torch.Tensor  # bool [...]
 
     @property
     def capacity(self) -> int:
-        return self.start.shape[0]
+        return self.start.shape[-1]
 
 
 def empty_events(cap: int, dtype=torch.float32, device="cpu") -> Events:
@@ -51,9 +51,10 @@ def empty_events(cap: int, dtype=torch.float32, device="cpu") -> Events:
 
 
 def _scatter_drop(cap: int, slot: torch.Tensor, keep: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """``zeros(cap).at[where(keep, slot, cap)].set(src, mode="drop")``."""
+    """``zeros(cap).at[where(keep, slot, cap)].set(src, mode="drop")`` along
+    the last axis."""
     to = torch.where(keep & (slot < cap), slot, cap).long()
-    return src.new_zeros(cap + 1).scatter_(0, to, src)[:cap]
+    return src.new_zeros(src.shape[:-1] + (cap + 1,)).scatter_(-1, to, src)[..., :cap]
 
 
 def set_at(t: torch.Tensor, i: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -68,28 +69,31 @@ def events_from_mask(above: torch.Tensor, series: torch.Tensor, cap: int) -> Eve
     Vectorized equivalent of the reference's diff-based run splitting
     (`main.py:408-415`) and of the adaptive detector's consecutive-block
     merging (`main.py:486-489`): both produce exactly the maximal runs.
+    A batch ``(..., n)`` is taken row by row (the reference's ``jax.vmap``):
+    the buffers are then ``(..., cap)`` and count and overflow ``(...)``.
     """
-    n = above.shape[0]
+    n = above.shape[-1]
     dtype = series.dtype
     dev = above.device
-    no = above.new_zeros(1)
-    prev = torch.cat([no, above[:-1]])
-    nxt = torch.cat([above[1:], no])
+    no = above.new_zeros(above.shape[:-1] + (1,))
+    prev = torch.cat([no, above[..., :-1]], -1)
+    nxt = torch.cat([above[..., 1:], no], -1)
     is_start = above & ~prev
     is_stop = above & ~nxt  # last block of each run
 
-    run_id = torch.cumsum(is_start.to(I32), 0, dtype=I32) - 1  # valid where above
-    num = is_start.sum(dtype=I32)
+    run_id = torch.cumsum(is_start.to(I32), -1, dtype=I32) - 1  # valid where above
+    num = is_start.sum(-1, dtype=I32)
 
-    idx = torch.arange(n, dtype=I32, device=dev)
+    idx = torch.arange(n, dtype=I32, device=dev).expand(above.shape)
     start = _scatter_drop(cap, run_id, is_start, idx)
     stop = _scatter_drop(cap, run_id, is_stop, idx + 1)
 
     seg = torch.where(above & (run_id < cap), run_id, cap).long()
-    sums = torch.zeros(cap + 1, dtype=dtype, device=dev).index_add_(
-        0, seg, torch.where(above, series, 0).to(dtype)
-    )[:cap]
-    cnts = torch.zeros(cap + 1, dtype=I32, device=dev).index_add_(0, seg, above.to(I32))[:cap]
+    buf = above.shape[:-1] + (cap + 1,)
+    sums = torch.zeros(buf, dtype=dtype, device=dev).scatter_add_(
+        -1, seg, torch.where(above, series, 0).to(dtype)
+    )[..., :cap]
+    cnts = torch.zeros(buf, dtype=I32, device=dev).scatter_add_(-1, seg, above.to(I32))[..., :cap]
     mean = torch.where(cnts > 0, sums / cnts.clamp(min=1).to(dtype), torch.nan)
 
     return Events(

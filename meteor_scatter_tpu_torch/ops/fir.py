@@ -1,0 +1,430 @@
+"""FIR design, filtering, polyphase resampling and the DDC channel bank.
+
+Counterpart of `meteor_scatter_tpu/ops/fir.py`.  An SDR capture at its
+native rate is mixed against each beacon channel, lowpassed and
+polyphase-decimated to the analysis rate on the device.
+
+* Host half (numpy, copied from the reference so that this module imports
+  without JAX; same bits): the window-method designs ``firwin_lowpass`` /
+  ``firwin_bandpass``, the polyphase tap split, the DDC bank's tap and
+  mixer-phase tables (exact int64 phase arithmetic mod fs, numpy's
+  non-negative ``%`` for negative centers), and the host-side framing of a
+  capture.
+* Device half (torch): ``fir_filter`` / ``resample_poly`` as
+  ``F.conv1d`` (a correlation, so the taps are passed reversed, as the
+  reference passes them to ``conv_general_dilated``), ``polyphase_decimate``
+  and the channel bank as one float32 ``torch.matmul`` at the output rate
+  plus a per-row phase rotation.  TF32 is off
+  (:mod:`meteor_scatter_tpu_torch.device`), as the reference runs these at
+  ``Precision.HIGHEST``.
+
+I/Q travels as a ``(re, im)`` pair of float32 tensors, as in the
+reference.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from meteor_scatter_tpu_torch.device import DeviceLike, resolve_device
+
+
+def _hamming(m: int) -> np.ndarray:
+    n = np.arange(m, dtype=np.float64)
+    return 0.54 - 0.46 * np.cos(2.0 * np.pi * n / (m - 1))
+
+
+def firwin_lowpass(numtaps: int, cutoff: float, fs: float = 2.0) -> np.ndarray:
+    """Windowed-sinc lowpass; ``cutoff`` in Hz for sample rate ``fs``.
+    Normalized to unity gain at DC (scipy.firwin convention)."""
+    fc = cutoff / (fs / 2.0)  # normalized to Nyquist
+    m = numtaps
+    alpha = (m - 1) / 2.0
+    n = np.arange(m, dtype=np.float64) - alpha
+    h = fc * np.sinc(fc * n) * _hamming(m)
+    return h / np.sum(h)
+
+
+def firwin_bandpass(numtaps: int, f_lo: float, f_hi: float, fs: float) -> np.ndarray:
+    """Bandpass as difference of two lowpasses, gain-normalized at the band
+    center so the beacon tone passes at unity."""
+    if numtaps % 2 == 0:
+        raise ValueError("bandpass FIR needs odd numtaps (type-I symmetry)")
+
+    def _lp(cut):  # un-normalized windowed sinc
+        fc = cut / (fs / 2.0)
+        alpha = (numtaps - 1) / 2.0
+        n = np.arange(numtaps, dtype=np.float64) - alpha
+        return fc * np.sinc(fc * n) * _hamming(numtaps)
+
+    h = _lp(f_hi) - _lp(f_lo)
+    # normalize to unity gain at band center
+    fc_mid = 0.5 * (f_lo + f_hi)
+    n = np.arange(numtaps, dtype=np.float64)
+    gain = abs(np.sum(h * np.exp(-2j * np.pi * fc_mid / fs * n)))
+    return h / gain
+
+
+def fir_filter(x: torch.Tensor, taps: np.ndarray, mode: str = "same") -> torch.Tensor:
+    """1-D FIR along the last axis, on ``x``'s device.
+
+    mode 'same' matches np.convolve(x, taps, 'same'); 'valid' drops the
+    transient edges; 'full' keeps everything.
+    """
+    t = len(taps)
+    if mode == "same":
+        pad = ((t - 1) // 2, t - 1 - (t - 1) // 2)
+    elif mode == "valid":
+        pad = (0, 0)
+    elif mode == "full":
+        pad = (t - 1, t - 1)
+    else:
+        raise ValueError(mode)
+    return _conv1d(x, taps, stride=1, pad=pad, lhs_dilation=1)
+
+
+def _reversed_tap_matrix(taps: np.ndarray, q: int, a_cols: int) -> np.ndarray:
+    """(q, a_cols) reversed-tap polyphase matrix (convolution order) — the
+    single source of truth for the tap split, shared by the decimator plan
+    and the DDC bank tables."""
+    t = len(taps)
+    rev = np.asarray(taps, np.float64)[::-1]
+    h = np.zeros((q, a_cols), np.float64)
+    for tap in range(t):
+        h[tap % q, tap // q] = rev[tap]
+    return h
+
+
+def _polyphase_plan(n: int, taps: np.ndarray, q: int):
+    """Framing math of the polyphase formulation: left pad, output length,
+    the (q, A) reversed tap matrix and the padded frame count.  Centering
+    matches np.convolve 'same' for odd tap counts; for even tap counts the
+    output is the 'SAME' convolution alignment, one sample left of numpy's."""
+    t = len(taps)
+    pl, pr = (t - 1) // 2, t - 1 - (t - 1) // 2
+    n_out = (n + pl + pr - t) // q + 1  # == conv output length
+    a_cols = -(-t // q)
+    h = _reversed_tap_matrix(taps, q, a_cols)
+    m = n_out + a_cols - 1
+    return pl, n_out, a_cols, h, m
+
+
+def _polyphase_frames(x: torch.Tensor, pl: int, m: int, q: int) -> torch.Tensor:
+    """(..., m, q) frames of the left-padded signal at the output stride;
+    frame o+a holds samples [(o+a)q, (o+a)q + q).  One padded copy; a
+    negative right pad crops, and the reshape is a view."""
+    n = x.shape[-1]
+    xp = F.pad(x.to(torch.float32), (pl, m * q - n - pl))
+    return xp.reshape(x.shape[:-1] + (m, q))
+
+
+def polyphase_decimate(x: torch.Tensor, taps: np.ndarray, q: int) -> torch.Tensor:
+    """Anti-alias filter + keep every q-th sample, computed polyphase: the
+    filter runs at the *output* rate.  Splitting the (reversed) tap index
+    t = a·q + b turns the decimation into ``frames(x) (m, q) @ H (q, A)``,
+    one product at the output rate, followed by a sum of the A = ceil(T/q)
+    shifted columns.  Same output length, centering and convolution
+    semantics as ``fir_filter(x, taps)[..., ::q]``.
+    """
+    if q == 1:
+        return fir_filter(x, taps, mode="same")
+    pl, n_out, a_cols, h, m = _polyphase_plan(x.shape[-1], taps, q)
+    f = _polyphase_frames(x, pl, m, q)
+    g = torch.matmul(f, torch.from_numpy(h.astype(np.float32)).to(f.device))
+    y = g[..., :n_out, 0]
+    for a in range(1, a_cols):
+        y = y + g[..., a : a + n_out, a]
+    return y
+
+
+def resample_poly(x: torch.Tensor, up: int, down: int, numtaps_per_phase: int = 20) -> torch.Tensor:
+    """Rational-rate polyphase resampler (scipy.signal.resample_poly
+    analog): the input zero-stuffed to ``(n-1)·up + 1`` samples, then one
+    strided ``F.conv1d`` (stride ``down``) with the lowpass — the
+    reference's ``lhs_dilation`` / window-stride convolution."""
+    g = math.gcd(up, down)
+    up //= g
+    down //= g
+    if up == 1 and down == 1:
+        return x
+    max_rate = max(up, down)
+    numtaps = 2 * numtaps_per_phase * max_rate + 1
+    # cutoff at min(1/up, 1/down) of the upsampled Nyquist
+    h = firwin_lowpass(numtaps, 1.0 / max_rate, fs=2.0) * up
+    t = len(h)
+    n = x.shape[-1]
+    n_out = int(math.ceil(n * up / down))
+    # left pad centers the filter (phase-preserving); right pad is sized so
+    # the strided conv emits exactly n_out samples even when the dilated
+    # input (n-1)*up+1 ends short of the last output's support
+    pl = (t - 1) // 2
+    l_dil = (n - 1) * up + 1
+    pr = max((n_out - 1) * down + t - l_dil - pl, 0)
+    y = _conv1d(x, h, stride=down, pad=(pl, pr), lhs_dilation=up)
+    return y[..., :n_out]
+
+
+def _conv1d(x: torch.Tensor, taps, stride: int, pad: Tuple[int, int], lhs_dilation: int):
+    """True convolution of the last axis with ``taps``: ``F.conv1d`` is a
+    correlation, so it gets the taps reversed.  The input is dilated
+    (``lhs_dilation - 1`` zeros between samples) and then padded
+    ``(left, right)``, as ``conv_general_dilated`` orders the two."""
+    k = torch.from_numpy(np.asarray(taps, dtype=np.float32)[::-1].copy()).to(x.device)
+    orig_shape = x.shape
+    xf = x.to(torch.float32).reshape(-1, 1, orig_shape[-1])  # (N, C=1, W)
+    if lhs_dilation > 1:
+        n = orig_shape[-1]
+        xd = xf.new_zeros(xf.shape[0], 1, (n - 1) * lhs_dilation + 1)
+        xd[..., ::lhs_dilation] = xf
+        xf = xd
+    y = F.conv1d(F.pad(xf, pad), k.reshape(1, 1, -1), stride=stride)
+    return y.reshape(orig_shape[:-1] + (y.shape[-1],))
+
+
+def _bank_tables(
+    fs_i: int,
+    freqs: list,
+    taps: np.ndarray,
+    q: int,
+    a_cols: int,
+    m: int,
+    pl: int,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Host-side tables of the one-product DDC bank (see :func:`_channel_bank`),
+    as numpy float32: the (q, 2·C·A) polyphase tap matrix with the
+    intra-frame mixer folded in by angle addition, and the (C, m)
+    output-rate row phases.  Row phases are exact integer arithmetic mod fs
+    for frame row ri at padded offset ``ri·q − pl``."""
+    hp = _reversed_tap_matrix(taps, q, a_cols)
+
+    c_n = len(freqs)
+    hh = np.zeros((q, 2, c_n, a_cols), np.float64)
+    b_idx = np.arange(q, dtype=np.int64)
+    for c, fc in enumerate(freqs):
+        ang_b = 2.0 * np.pi * ((b_idx * (fc % fs_i)) % fs_i) / fs_i
+        hh[:, 0, c, :] = np.cos(ang_b)[:, None] * hp
+        hh[:, 1, c, :] = np.sin(ang_b)[:, None] * hp
+    hh32 = hh.reshape(q, 2 * c_n * a_cols).astype(np.float32)
+
+    ri = np.arange(m, dtype=np.int64)
+    cr = np.empty((c_n, m), np.float32)
+    sr = np.empty((c_n, m), np.float32)
+    for c, fc in enumerate(freqs):
+        p = ((ri * q - pl) * fc) % fs_i
+        ang = 2.0 * np.pi * p / fs_i
+        cr[c] = np.cos(ang)
+        sr[c] = np.sin(ang)
+    return hh32, cr, sr
+
+
+def _bank_apply(
+    f: torch.Tensor,  # (..., m, q) frames of the padded signal
+    hh: torch.Tensor,
+    cr: torch.Tensor,
+    sr: torch.Tensor,
+    c_n: int,
+    a_cols: int,
+    n_out: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Device half of the DDC bank: one ``torch.matmul`` + per-row phase
+    rotation, in the reference's operation order.
+
+    dc = Σ_a cr·G_cos − sr·G_sin ; ds = Σ_a sr·G_cos + cr·G_sin
+    (angle addition: cos(r+b) = cr·cb − sr·sb, sin(r+b) = sr·cb + cr·sb).
+    """
+    batch = f.shape[:-2]
+    m = f.shape[-2]
+    # the product taken transposed, hh^T @ frames^T: G comes out as
+    # (..., 2, C, A, m), so the rotation reads every tap column's rows at
+    # unit stride (as (m, 2·C·A) they would lie 2·C·A floats apart)
+    g = torch.matmul(hh.t(), f.transpose(-1, -2)).reshape(batch + (2, c_n, a_cols, m))
+    dc = f.new_zeros(batch + (c_n, n_out))
+    ds = torch.zeros_like(dc)
+    for a in range(a_cols):
+        gc = g[..., 0, :, a, a : a + n_out]  # (..., C, n_out)
+        gs = g[..., 1, :, a, a : a + n_out]
+        crs = cr[:, a : a + n_out]
+        srs = sr[:, a : a + n_out]
+        dc = dc + crs * gc - srs * gs
+        ds = ds + srs * gc + crs * gs
+    return dc, ds
+
+
+def _validated_int_rate_and_freqs(fs: float, center_freqs) -> Tuple[int, list]:
+    fs_i = int(round(fs))
+    if abs(fs - fs_i) > 1e-6:
+        raise ValueError("channelize requires an integer sample rate")
+    freqs = [int(round(f)) for f in np.asarray(center_freqs).ravel()]
+    if any(abs(f - g) > 1e-9 for f, g in zip(np.asarray(center_freqs).ravel(), freqs)):
+        raise ValueError("channel centers must be integer Hz")
+    return fs_i, freqs
+
+
+def channel_bank_plan(
+    n: int,
+    fs: float,
+    center_freqs: np.ndarray,
+    bandwidth: float,
+    decim: int,
+    numtaps: int,
+    device: DeviceLike = "cuda",
+):
+    """Host-side half of the one-product DDC bank, split out so that callers
+    can frame a capture on the host (:func:`frame_capture_host`) and upload
+    it framed.
+
+    Returns ``(plan, (hh, cr, sr))``: ``plan`` holds the framing geometry
+    (n / pl / n_out / a_cols / m / q / c_n for an input of length ``n``) and
+    the tables are float32 tensors on ``device`` sized ``(q, 2·C·A)`` /
+    ``(C, m)`` / ``(C, m)``."""
+    dev = resolve_device(device)
+    fs_i, freqs = _validated_int_rate_and_freqs(fs, center_freqs)
+    h = firwin_lowpass(numtaps, bandwidth / 2.0, fs)
+    q, c_n = int(decim), len(freqs)
+    pl, n_out, a_cols, _, m = _polyphase_plan(n, h, q)
+    tables = _bank_tables(fs_i, freqs, h, q, a_cols, m, pl)
+    plan = {
+        "n": int(n), "pl": int(pl), "n_out": int(n_out),
+        "a_cols": int(a_cols), "m": int(m), "q": q, "c_n": c_n,
+    }
+    return plan, tuple(torch.from_numpy(t).to(dev) for t in tables)
+
+
+def frame_capture_host(x_np: np.ndarray, plan: dict) -> np.ndarray:
+    """Host-side polyphase framing: numpy pad + reshape of a flat capture
+    to the ``(..., m, q)`` frames :func:`channelize_frames` /
+    :func:`channelize_iq_frames` consume.  Frames sit at stride q == their
+    length, so this is a pure copy (no size blowup)."""
+    pl, m, q = plan["pl"], plan["m"], plan["q"]
+    x_np = np.asarray(x_np, np.float32)
+    n = x_np.shape[-1]
+    if n != plan["n"]:
+        raise ValueError(
+            f"capture length {n} does not match the plan's n={plan['n']} — "
+            "frames built from a mismatched plan would silently pad or "
+            "truncate the capture"
+        )
+    need = m * q
+    pad = [(0, 0)] * (x_np.ndim - 1) + [(pl, max(need - n - pl, 0))]
+    xp = np.pad(x_np, pad)
+    return xp[..., :need].reshape(x_np.shape[:-1] + (m, q))
+
+
+def frame_capture_sharded_host(x_np: np.ndarray, plan: dict, n_shards: int) -> np.ndarray:
+    """Per-time-shard polyphase frames with the ``a_cols−1`` halo frames
+    baked in: shard k's rows are global frames ``[k·n_out_loc,
+    k·n_out_loc + m_loc)`` (``m_loc = n_out_loc + a_cols − 1``), so a
+    time-sharded DDC bank needs no halo exchange.  Returns
+    ``(n_shards,) + x.shape[:-1] + (m_loc, q)``."""
+    f = frame_capture_host(x_np, plan)
+    a_cols, n_out = plan["a_cols"], plan["n_out"]
+    if n_out % n_shards:
+        raise ValueError(f"n_out ({n_out}) must divide across {n_shards} shards")
+    n_out_loc = n_out // n_shards
+    m_loc = n_out_loc + a_cols - 1
+    return np.stack(
+        [f[..., k * n_out_loc : k * n_out_loc + m_loc, :] for k in range(n_shards)]
+    )
+
+
+def channelize_frames(f: torch.Tensor, tables, plan: dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`channelize` on pre-framed input (see
+    :func:`channel_bank_plan` / :func:`frame_capture_host`) — bit-identical
+    output, no framing on the device."""
+    dc, ds = _bank_apply(f, *tables, plan["c_n"], plan["a_cols"], plan["n_out"])
+    return dc, -ds
+
+
+def channelize_iq_frames(f: torch.Tensor, tables, plan: dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`channelize_iq` on pre-framed input: ``f`` is the framed
+    ``(2, ..., m, q)`` stack of (re, im) from
+    ``frame_capture_host(np.stack([x_re, x_im]), plan)`` — bit-identical
+    output, no framing on the device."""
+    dc, ds = _bank_apply(f, *tables, plan["c_n"], plan["a_cols"], plan["n_out"])
+    return dc[0] + ds[1], dc[1] - ds[0]
+
+
+def _channel_bank(
+    x: torch.Tensor,
+    fs: float,
+    center_freqs: np.ndarray,
+    bandwidth: float,
+    decim: int,
+    numtaps: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Shared DDC machinery behind :func:`channelize` / :func:`channelize_iq`:
+    for every channel c returns the decimated quadrature projections
+
+        dc = decim((x · cos φ_c) * h),   ds = decim((x · sin φ_c) * h)
+
+    with φ_c(s) = 2π·fc·s/fs at input-sample index s, each output
+    ``x.shape[:-1] + (n_channels, n_out)`` float32, on ``x``'s device.
+
+    Nothing runs at the input rate but one product: splitting the input
+    index ``s = ri·q + b`` (ri = output-rate frame row, b = intra-frame
+    offset) splits the mixer phase by angle addition, so the intra-frame
+    factor ``cos/sin(2π·fc·b/fs)`` folds into the polyphase tap matrix per
+    channel on the host, and the whole bank becomes
+
+        frames(x) @ [Hcos | Hsin]        # (m, q) @ (q, 2·C·A)
+        y = rotate by per-row phase      # output-rate cos/sin, O(C·m)
+
+    No (C, n) mixer tables or mixed copies of x are made; x is read once.
+    """
+    plan, tables = channel_bank_plan(
+        x.shape[-1], fs, center_freqs, bandwidth, decim, numtaps, device=x.device
+    )
+    f = _polyphase_frames(x, plan["pl"], plan["m"], plan["q"])
+    return _bank_apply(f, *tables, plan["c_n"], plan["a_cols"], plan["n_out"])
+
+
+def channelize(
+    x: torch.Tensor,
+    fs: float,
+    center_freqs: np.ndarray,
+    bandwidth: float,
+    decim: int,
+    numtaps: int = 257,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Multi-channel DDC bank over a *real* capture: mix each beacon channel
+    to baseband (``x·e^{-jφ_c}``), lowpass, and decimate.  Returns the
+    complex baseband as a real pair ``(re, im)``, each (n_channels, n_out)
+    float32 on ``x``'s device.  See :func:`_channel_bank`.
+    """
+    dc, ds = _channel_bank(x, fs, center_freqs, bandwidth, decim, numtaps)
+    return dc, -ds
+
+
+def channelize_iq(
+    x_re: torch.Tensor,
+    x_im: torch.Tensor,
+    fs: float,
+    center_freqs: np.ndarray,
+    bandwidth: float,
+    decim: int,
+    numtaps: int = 257,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`channelize` for a *complex* (I/Q) capture, passed as the real
+    pair ``(x_re, x_im)``.  Channel centers are baseband offsets and may be
+    **negative** — the lower half of the captured span, unreachable from a
+    real capture.
+
+    With x = xr + j·xi and y = decim(LPF(x·e^{-jφ_c})):
+
+        y_re = decim((xr·cosφ)·h) + decim((xi·sinφ)·h)
+        y_im = decim((xi·cosφ)·h) − decim((xr·sinφ)·h)
+
+    Both components ride one stacked frames product through
+    :func:`_channel_bank`.  Returns ``(y_re, y_im)``, each
+    ``x_re.shape[:-1] + (C, n_out)``.
+    """
+    if x_re.shape != x_im.shape:
+        raise ValueError(f"I/Q shape mismatch: {tuple(x_re.shape)} vs {tuple(x_im.shape)}")
+    x = torch.stack([x_re, x_im])
+    dc, ds = _channel_bank(x, fs, center_freqs, bandwidth, decim, numtaps)
+    return dc[0] + ds[1], dc[1] - ds[0]

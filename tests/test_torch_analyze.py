@@ -151,9 +151,10 @@ def test_parse_gqrx_start_time_matches_jax(name):
 
 def test_jax_free_import_and_run(tmp_path):
     """Every module of the port imports with ``import jax`` failing, the
-    analyzer (both adaptive solvers) and the live detector (welch and
-    headless) run end to end on the CPU, and afterwards no module of JAX or
-    of the JAX package ``meteor_scatter_tpu`` is loaded."""
+    analyzer (both adaptive solvers), the live detector (welch and
+    headless) and the wideband front end (real and I/Q) run end to end on
+    the CPU, and afterwards no module of JAX or of the JAX package
+    ``meteor_scatter_tpu`` is loaded."""
     code = textwrap.dedent(
         """
         import contextlib, importlib, io, pkgutil, sys
@@ -182,6 +183,16 @@ def test_jax_free_import_and_run(tmp_path):
             with contextlib.redirect_stdout(out):
                 assert live.main([path, "--device", "cpu", "--min-dur", "0.5", *extra]) == 0
             assert "start=20.00s" in out.getvalue() and "Total detected meteors: 1" in out.getvalue()
+        from meteor_scatter_tpu_torch.apps import frontend
+        for extra in ([], ["--iq"]):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                assert frontend.main(["--fs", "48000", "--stations", "2", "--seconds", "60",
+                                      "--base-freq", "10000", "--spacing", "6000",
+                                      "--device", "cpu", *extra]) == 0
+            stations = [ln for ln in out.getvalue().splitlines() if ln.startswith("station ")]
+            # the second burst of each station starts past the 10 s fixed start
+            assert len(stations) == 2 and all(": 2 events" in ln for ln in stations), out.getvalue()
         loaded = [k for k, v in sys.modules.items() if v is not None and (
             k.split(".")[0] == "jax" or k == "meteor_scatter_tpu"
             or k.startswith("meteor_scatter_tpu."))]
