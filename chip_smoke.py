@@ -53,6 +53,22 @@ non-zero (there is no CPU fallback):
    fused == scan bit for bit, pre-framed == flat events, every burst after
    the 8 s initial wait found; complex samples/s with and without the
    upload, profile rows and the bank GEMM's bound.
+10. e2e_spec_export — the spectrogram PNG exports: ``apps.analyze.main
+   --out-spec-dir`` on the first hour of the batch day (one PNG per event,
+   named from the event CSV) and ``apps.live.main --spec-export-dir`` on the
+   first hour of the live day (one PNG per event whose ±3 s window lies in
+   one 60 s feed: the ring holds the last feed), with the time per export. Their K1 / K3 launches are printed
+   on the phase's line and not added to the kernel records' counts.
+11. e2e_monitor — the segment monitor: the JAX package's image benchmark
+   fixture (8 x 30 s at 5 kHz, bursts at 8 + s and 20 s) as one batch
+   through ``detect_and_cluster_bursts`` on the card in both keypoint
+   modes (2 critical clusters a segment, each burst inside a cluster's
+   box, counts equal to the port's on the CPU, the card's image clustered
+   on the CPU equal field for field, none of K1-K3 launched), segments/s
+   for the batch and ms for one segment, the label rounds, a profile of
+   one segment; then ``apps.monitor.main --wav`` over a synthetic 6 h day
+   from 21:00 (the daily CSVs byte-equal to the port's ledger fed the
+   truth on the same clock, one PNG per burst segment).
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after.  The last three lines are the ``nvidia-smi`` line, one
@@ -135,6 +151,17 @@ EVENT_CAP = 512  # detect_channels' buffer: a count below it means no overflow
 # 2 MS/s I/Q, 8 stations, 1000 Hz tone at 4 kHz audio, decimation 500,
 # 2 001 taps, 1 500 Hz channels, 60 s with 4 bursts a station (seed 3).
 IQ_SECONDS, IQ_AUDIO_RATE, IQ_DECIM, IQ_NUMTAPS, IQ_BANDWIDTH = 60.0, 4000, 500, 2001, 1500.0
+# The segment monitor (the reference's 24/7 loop, MonitorConfig defaults):
+# 30 s segments at 5 kHz. The batch fixture is the JAX package's
+# bench.py::image_pipeline (8 segments, seed 11, noise std 300, 1 s 1000 Hz
+# bursts of amplitude 3000 at 8 + s and 20 s); the CLI replays a synthetic
+# 6 h day from 21:00, crossing hourly flushes and one midnight rotation.
+MONITOR_FS, MONITOR_SEG_SEC, MONITOR_BATCH, MONITOR_NFFT = 5000, 30, 8, 2048
+IMAGE_NOISE, IMAGE_AMP, IMAGE_TONE_HZ = 300.0, 3000.0, 1000.0
+MONITOR_HOURS, MONITOR_START = 6, "2026-08-16T21:00:00"
+# The exports' context after an event (SpecExportConfig.time_after_meteor_sec)
+SPEC_AFTER_SEC = 3.0
+LIVE_FEED_SEC = 60.0  # apps.live's chunk, and its waterfall ring (max_range_sec)
 # Card peaks for the bound (H100 SXM data sheet): HBM bytes/s, FP32 FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -1197,6 +1224,260 @@ def phase_e2e_frontend_iq() -> dict:
     return out
 
 
+def image_batch_fixture() -> np.ndarray:
+    """``bench.py::image_pipeline``'s audio (seed 11): (8, 150 000) float32."""
+    rng = np.random.default_rng(11)
+    n = MONITOR_FS * MONITOR_SEG_SEC
+    x = rng.standard_normal((MONITOR_BATCH, n)).astype(np.float32) * IMAGE_NOISE
+    t = np.arange(n) / MONITOR_FS
+    for s in range(MONITOR_BATCH):
+        for b0 in (8.0 + s, 20.0):
+            m = (t >= b0) & (t < b0 + 1.0)
+            x[s, m] += IMAGE_AMP * np.sin(2 * np.pi * IMAGE_TONE_HZ * t[m]).astype(np.float32)
+    return x
+
+
+def file_bytes(path: str):
+    """A file's bytes, or None where there is no file."""
+    if not os.path.exists(path):
+        return None
+    with open(path, "rb") as fh:
+        return fh.read()
+
+
+def bursts_to_host(b) -> dict:
+    return {f: getattr(b, f).cpu().numpy() for f in b._fields}
+
+
+def bursts_equal(a: dict, b: dict) -> bool:
+    """Every ``ImageBursts`` field equal, dtype and empty slots included."""
+    return all(a[f].dtype == b[f].dtype and np.array_equal(a[f], b[f]) for f in a)
+
+
+def synth_monitor_wav(path: str, hours: int, seed: int) -> list:
+    """Noise std 300 at 5 kHz with a 1 s 1000 Hz burst of amplitude 3000 in
+    every 30 s segment but each fifth, at 5 + (k mod 20) s into segment k;
+    made on the card and written as int16.  Returns which segments hold a
+    burst."""
+    import torch
+
+    from meteor_scatter_tpu_torch.io.wavio import write_wav
+
+    seg = MONITOR_FS * MONITOR_SEG_SEC
+    n_seg = hours * 3600 // MONITOR_SEG_SEC
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.randn(n_seg * seg, generator=g, device=DEVICE) * IMAGE_NOISE
+    j = torch.arange(MONITOR_FS, dtype=torch.float64, device=DEVICE)
+    burst = [k % 5 != 4 for k in range(n_seg)]
+    for k in range(n_seg):
+        if burst[k]:
+            a = k * seg + (5 + k % 20) * MONITOR_FS
+            x[a : a + MONITOR_FS] += (IMAGE_AMP * torch.sin(
+                2 * math.pi * IMAGE_TONE_HZ * (a + j) / MONITOR_FS)).float()
+    pcm = torch.clamp(torch.round(x), -32768, 32767).to(torch.int16).cpu().numpy()
+    del x
+    write_wav(path, MONITOR_FS, pcm)
+    return burst
+
+
+def phase_e2e_monitor(tmp: str) -> dict:
+    """The segment monitor: (a) the batch fixture as one (8, 150 000) call of
+    ``detect_and_cluster_bursts`` on the card in both keypoint modes, held
+    against the port on the CPU, timed, with its label rounds and a
+    profile; (b) ``apps.monitor.main --wav`` over a synthetic 6 h day."""
+    import datetime
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from meteor_scatter_tpu_torch.apps import monitor
+    from meteor_scatter_tpu_torch.io.ledger import HourlyLedger
+    from meteor_scatter_tpu_torch.models import image as im
+
+    fs = float(MONITOR_FS)
+    x_np = image_batch_fixture()
+    x = torch.from_numpy(x_np).to(DEVICE)
+    out = {"phase": "e2e_monitor", "batch_segments": MONITOR_BATCH, "fs": MONITOR_FS}
+    for mode in ("threshold", "corner"):
+        # --- (a) the batch on the card: the main path of the detector ---
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        img, b = im.detect_and_cluster_bursts(x, fs, keypoint_mode=mode)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        rounds = im.label_rounds["cluster_core_labels"]
+        card = bursts_to_host(b)
+        if any(launches.values()):
+            raise AssertionError(f"monitor {mode}: the image path launched {launches}")
+        if not ((card["count"] == 2).all() and (card["n_critical"] == 2).all()
+                and not card["overflow"].any()):
+            raise AssertionError(f"monitor {mode}: counts {card['count']}, critical "
+                                 f"{card['n_critical']}, overflow {card['overflow']}")
+        missed = []
+        for s in range(MONITOR_BATCH):
+            lo = card["t_min"][s, :2] * img.hop_sec
+            hi = card["t_max"][s, :2] * img.hop_sec + MONITOR_NFFT / fs
+            missed += [(s, b0) for b0 in (8.0 + s, 20.0) if not ((lo <= b0) & (b0 <= hi)).any()]
+        if missed:
+            raise AssertionError(f"monitor {mode}: bursts outside every cluster's box {missed}")
+        # --- the port on the CPU, same audio: the same counts ---
+        _, b_cpu = im.detect_and_cluster_bursts(torch.from_numpy(x_np), fs, keypoint_mode=mode)
+        cpu = bursts_to_host(b_cpu)
+        if any(not np.array_equal(card[f], cpu[f])
+               for f in ("count", "n_critical", "n_non_critical", "overflow")):
+            raise AssertionError(f"monitor {mode}: card counts {card['count']} != CPU {cpu['count']}")
+        # --- the card's image clustered on the CPU: every field equal ---
+        img_h = im.SpectrogramImage(img.db.cpu(), img.vmin.cpu(), img.freqs, img.hop_sec,
+                                    img.hz_per_bin)
+        kp = im.corner_keypoints(img).cpu() if mode == "corner" else None
+        if not bursts_equal(bursts_to_host(im.cluster_bursts(img_h, keypoint_mask=kp)), card):
+            raise AssertionError(f"monitor {mode}: the card's image clustered on the CPU differs")
+        batch_ms = cuda_ms(lambda: im.detect_and_cluster_bursts(x, fs, keypoint_mode=mode),
+                           warmup=2, reps=9)
+        one_ms = cuda_ms(lambda: im.detect_and_cluster_bursts(x[0], fs, keypoint_mode=mode),
+                         warmup=2, reps=9)
+        one_rounds = im.label_rounds["cluster_core_labels"]
+        out[mode] = {
+            "launches": launches, "counts": card["count"].tolist(),
+            "critical": card["n_critical"].tolist(), "card_counts_equal_cpu": True,
+            "card_image_clustered_on_cpu_equal": True, "core_label_rounds_batch": rounds,
+            "core_label_rounds_one": one_rounds, "batch_ms": batch_ms,
+            "segments_per_s_batch": MONITOR_BATCH / (batch_ms / 1e3), "one_segment_ms": one_ms,
+        }
+    # --- one segment under the profiler: its device kernels, busy share ---
+    reps = 5
+    im.detect_and_cluster_bursts(x[0], fs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACER_SETTLE_S)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            im.detect_and_cluster_bursts(x[0], fs)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    rows = device_rows(prof)
+    busy_ms = sum(r[1] for r in rows)
+    out["profile_one_segment"] = {
+        "calls": reps, "wall_ms": prof_wall * 1e3 / reps,
+        # a lower bound: the tracer may drop kernel records (TRACER_SETTLE_S)
+        "device_records_per_call": sum(r[2] for r in rows) / reps,
+        "device_busy_ms_per_call": busy_ms / reps,
+        "device_busy_share": busy_ms / (prof_wall * 1e3),
+        "core_label_rounds": im.label_rounds["cluster_core_labels"],
+        "device_top": [[k[:100], round(ms / reps, 4), c / reps] for k, ms, c in rows[:12]],
+    }
+    del x, img, b
+
+    # --- (b) the CLI over a synthetic day: hourly ledger and PNGs ---
+    wav = os.path.join(tmp, "monitor_5khz.wav")
+    t0 = time.perf_counter()
+    burst = synth_monitor_wav(wav, MONITOR_HOURS, seed=5)
+    synth_s = time.perf_counter() - t0
+    csv_dir, png_dir, truth_dir = (os.path.join(tmp, d) for d in ("csv", "png", "truth"))
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        rc = monitor.main(["--wav", wav, "--csv-out", csv_dir, "--spec-out", png_dir,
+                           "--start-time", MONITOR_START, "--device", DEVICE])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    if rc != 0 or any(launches.values()):
+        raise AssertionError(f"monitor.main returned {rc}, launched {launches}")
+    text = log.getvalue()
+    crit = [int(v) for v in re.findall(r"^Critical bursts this segment: (\d+)$", text, re.M)]
+    non = [int(v) for v in re.findall(r"^Non-critical bursts this segment: (\d+)$", text, re.M)]
+    wrong = [k for k, (c, n_) in enumerate(zip(crit, non)) if (c, n_) != (int(burst[k]), 0)]
+    if len(crit) != len(burst) or wrong:
+        raise AssertionError(f"monitor CLI: {len(crit)} segments of {len(burst)}, counts wrong in "
+                             f"segments {wrong[:8]}")
+    # the truth through the port's own ledger on the same simulated clock
+    start = datetime.datetime.fromisoformat(MONITOR_START)
+    ledger = HourlyLedger(truth_dir, now=start)
+    names = set()
+    for k, has in enumerate(burst):
+        now = start + datetime.timedelta(seconds=(k + 1) * MONITOR_SEG_SEC)
+        ledger.add(int(has), 0, now=now)
+        if has:
+            names.add(now.strftime("%Y%m%d-%H%M%S") + "-1-0.png")
+    truth_files = sorted(os.listdir(truth_dir))
+    csvs = sorted(f for f in os.listdir(csv_dir) if f.endswith(".csv"))
+    differ = [f for f in truth_files if file_bytes(os.path.join(csv_dir, f))
+              != file_bytes(os.path.join(truth_dir, f))]
+    if differ or csvs != [f for f in truth_files if f.endswith(".csv")] or len(csvs) != 2:
+        raise AssertionError(f"monitor CLI: ledger files differ from the truth's: {differ}, {csvs}")
+    pngs = set(os.listdir(png_dir))
+    if pngs != names:
+        raise AssertionError(f"monitor CLI: {len(pngs)} PNGs for {len(names)} burst segments")
+    with open(os.path.join(csv_dir, csvs[0])) as fh:
+        rows_day1 = fh.read().splitlines()
+    out["cli"] = {
+        "hours": MONITOR_HOURS, "segments": len(burst), "burst_segments": len(names),
+        "synth_write_s": synth_s, "wall_s": wall, "segments_per_s": len(burst) / wall,
+        "phases_s": timer_totals(text), "csv_files": csvs, "rows_first_day": len(rows_day1) - 1,
+        "ledger_equals_truth": True, "pngs": len(pngs),
+        "last_segment_core_label_rounds": im.label_rounds["cluster_core_labels"],
+    }
+    emit(out)
+    return out
+
+
+def phase_e2e_spec_export(tmp: str) -> dict:
+    """The spectrogram PNG exports: the analyzer's ``--out-spec-dir`` on the
+    first hour of the batch day (one PNG per event, named from the event
+    CSV's times) and the live CLI's ``--spec-export-dir`` on the first hour
+    of the live day (one PNG per event whose window lies in one feed's
+    span, the span of the waterfall ring), with the time per export."""
+    from meteor_scatter_tpu_torch.apps import analyze
+
+    out = {"phase": "e2e_spec_export"}
+    # --- the analyzer, 1 h cut of the 24 h batch day ---
+    wav = os.path.join(tmp, ANALYZE_WAV)
+    spec_dir, csv_path = os.path.join(tmp, "spec_analyze"), os.path.join(tmp, "spec_cut.csv")
+    zero_launch_counts()
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        rc = analyze.main([wav, "--end-sec", "3600", "--out-csv", csv_path,
+                           "--out-spec-dir", spec_dir, "--device", DEVICE])
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    rows = read_rows(csv_path)
+    want = {f"spec_and_psd_{float(r['t_start']):.2f}_{float(r['t_stop']):.2f}.png" for r in rows}
+    got = set(os.listdir(spec_dir))
+    if rc != 0 or got != want or len(got) != len(rows) or len(rows) < 70:
+        raise AssertionError(f"analyze --out-spec-dir: {len(got)} PNGs for {len(rows)} events")
+    export_s = timer_totals(log.getvalue())["spec_export"]
+    out["analyze"] = {"seconds": 3600, "events": len(rows), "pngs": len(got), "wall_s": wall,
+                      "spec_export_s": export_s, "ms_per_export": export_s / len(rows) * 1e3,
+                      "launches": launches}
+    # --- the live CLI, 1 h cut of the 24 h live day, with and without ---
+    wav = os.path.join(tmp, "live_4khz_24h.wav")
+    spec_dir = os.path.join(tmp, "spec_live")
+    cut = ["--stop-sec", "3600", "--device", DEVICE, *LIVE_ARGS]
+    events_n, _, wall_n, _, _ = run_live_main([wav, *cut])
+    events, _, wall, k3, _ = run_live_main([wav, "--spec-export-dir", spec_dir, *cut])
+    # the ring holds the last feed's 60 s, so a window is exported when it
+    # lies inside the span of one feed, (60 (k - 1), 60 k], before the end
+    want = set()
+    for a, b in events:
+        k = math.ceil((b + SPEC_AFTER_SEC) / LIVE_FEED_SEC)
+        if a - SPEC_AFTER_SEC > LIVE_FEED_SEC * (k - 1) and k * LIVE_FEED_SEC <= 3600.0:
+            want.add(f"spec_{a:.2f}_{b:.2f}.png")
+    got = set(os.listdir(spec_dir))
+    if events != events_n or got != want or len(got) < 60:
+        raise AssertionError(f"live --spec-export-dir: {len(got)} PNGs for {len(want)} closed "
+                             f"windows ({len(events)} events; same events without: "
+                             f"{events == events_n})")
+    out["live"] = {"seconds": 3600, "events": len(events), "pngs": len(got), "wall_s": wall,
+                   "wall_without_export_s": wall_n,
+                   "ms_per_export": (wall - wall_n) / len(got) * 1e3, "k3_launches": k3}
+    emit(out)
+    return out
+
+
 def port_modules_loaded_from_jax() -> list:
     """JAX or JAX-package modules present in this process."""
     return [k for k, v in sys.modules.items() if v is not None and (
@@ -1226,11 +1507,13 @@ def main() -> int:
         e2e_bp = phase_e2e_bandpower(x)
         del x
         torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
         e2e_live = phase_e2e_live(tmp)
+        phase_e2e_spec_export(tmp)
     e2e_st = phase_e2e_stations()
     phase_e2e_frontend()
     e2e_fiq = phase_e2e_frontend_iq()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_e2e_monitor(tmp)
     loaded = port_modules_loaded_from_jax()
     if loaded:
         raise AssertionError(f"the port loaded JAX or the JAX package: {loaded[:5]}")

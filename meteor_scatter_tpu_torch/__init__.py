@@ -17,7 +17,14 @@ Ported so far:
   threshold, 3-state machine and event compaction (one launch of the CUDA
   kernel ``csrc/stream_machine.cu`` on a GPU, its twin on the CPU) → events;
 * the fused band power (``ops/kernels/bandpower_kernel.py``, the CUDA
-  kernel ``csrc/bandpower.cu``).
+  kernel ``csrc/bandpower.cu``);
+* the wideband/IQ front end (:mod:`meteor_scatter_tpu_torch.apps.frontend`);
+* the 24/7 segment monitor (:mod:`meteor_scatter_tpu_torch.apps.monitor`):
+  spectrogram image and noise-floor cut, pixel-exact DBSCAN and the
+  critical rule (:mod:`meteor_scatter_tpu_torch.models.image`, plain
+  PyTorch), the hourly CSV ledger and PNG copies on the host; and the
+  spectrogram PNG exports of the analyzer and the live CLI
+  (:mod:`meteor_scatter_tpu_torch.io.spec_export`).
 
 Every function takes its tensors on an explicit device; nothing here keeps
 a global default device.  Importing the package sets the float32 matmul

@@ -1,7 +1,7 @@
 """Batch WAV analyzer on PyTorch — counterpart of
 `meteor_scatter_tpu/apps/analyze.py` (reference: `dsp/src/main.py:207-806`,
 ``proc_wav_file``) with the same outputs: console detections, Audacity
-pre-labels and the event CSV.
+pre-labels, the event CSV and per-detection spectrogram PNGs.
 
 The whole file is one tensor program on the chosen device: framing → band
 projection matmul → adaptive (or fixed) detection → fixed-capacity events.
@@ -17,8 +17,7 @@ Usage::
 Filename → UTC start-time parsing supports the reference's gqrx pattern
 ``*_gqrx_YYYYMMDD_HHMMSS_<freq>.wav`` (`main.py:858-863`).
 
-Not yet ported: ``--out-spec-dir`` (per-detection spectrogram images) and
-``--plot-dir`` (debug plots); both raise.
+Not yet ported: ``--plot-dir`` (debug plots); it raises.
 """
 
 from __future__ import annotations
@@ -40,6 +39,7 @@ from meteor_scatter_tpu_torch.io.events_csv import (
     write_audacity_labels,
     write_event_csv,
 )
+from meteor_scatter_tpu_torch.io.spec_export import export_detection_spec
 from meteor_scatter_tpu_torch.io.wavio import read_wav
 from meteor_scatter_tpu_torch.models.adaptive import detect_adaptive
 from meteor_scatter_tpu_torch.models.fixed import detect_fixed
@@ -101,9 +101,8 @@ def proc_wav_file(
     ``impl`` selects the adaptive solver (:func:`detect_adaptive`):
     "parallel" (plain PyTorch fixpoint), "fused" (the CUDA kernel on a
     GPU), or "auto" (fused on a GPU, parallel on the CPU).
-    ``outfile_path`` (spectrogram export) is not yet ported and raises."""
-    if outfile_path:
-        raise NotImplementedError(f"spectrogram export (outfile_path / --out-spec-dir) {NOT_PORTED}")
+    ``outfile_path`` is the directory of the per-detection spectrogram PNGs
+    (``io/spec_export.py``, transforms on ``device``)."""
     dev = resolve_device(device)
     timer = PhaseTimer(log=False)
 
@@ -170,6 +169,13 @@ def proc_wav_file(
     if out_csv_file:
         write_event_csv(out_csv_file, dets)
         print("Wrote Items", len(dets), "to CSV file:", out_csv_file)
+    if outfile_path:
+        with timer.phase("spec_export"):
+            wav_np = np.asarray(data, dtype=np.float32)
+            for det in dets:
+                export_detection_spec(
+                    outfile_path, det, wav_np, fs, n_fft=1024, freq_band=freq_band, device=dev
+                )
 
     return AnalyzeResult(
         detections=dets,
@@ -198,7 +204,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--sample-rate", type=int, default=None, help="expected rate (default: accept any)")
     p.add_argument("--out-csv", default=None)
     p.add_argument("--out-audacity", default=None)
-    p.add_argument("--out-spec-dir", default=None, help="not yet ported; raises")
+    p.add_argument("--out-spec-dir", default=None)
     p.add_argument("--plot-dir", default=None, help="not yet ported; raises")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)

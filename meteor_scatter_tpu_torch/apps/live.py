@@ -11,16 +11,21 @@ as one launch of the hand-written CUDA kernel ``csrc/stream_machine.cu``.
 Usage::
 
     python -m meteor_scatter_tpu_torch.apps.live recording.wav \\
-        --signal-freq 1020 --min-dur 0.5 --min-mean-db 1 --device cuda
+        --signal-freq 1020 --min-dur 0.5 --min-mean-db 1 --device cuda \\
+        --spec-export-dir spec_export/
 
-Not yet ported: ``--ui`` (the live matplotlib dashboard) and
-``--spec-export-dir`` (per-event waterfall PNGs); both raise, and so do the
-episode-jump solvers ``--impl jump|hop``.
+Per-event waterfall PNGs (``--spec-export-dir``) are exported once the ±3 s
+context window fits the waterfall ring, with the auto-gained dB range from
+the initialization phase (`processor.py:294-343`).
+
+Not yet ported: ``--ui`` (the live matplotlib dashboard) and the
+episode-jump solvers ``--impl jump|hop``; both raise.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 from typing import List, Optional
 
 import numpy as np
@@ -28,6 +33,7 @@ import torch
 
 from meteor_scatter_tpu_torch.config import DetectionConfig, SpecExportConfig, VisualizationConfig
 from meteor_scatter_tpu_torch.device import DeviceLike, resolve_device
+from meteor_scatter_tpu_torch.io.spec_export import export_waterfall_window
 from meteor_scatter_tpu_torch.io.wavio import read_wav
 from meteor_scatter_tpu_torch.models.streaming import (
     StreamConfig,
@@ -35,6 +41,7 @@ from meteor_scatter_tpu_torch.models.streaming import (
     stream_init,
     stream_process,
 )
+from meteor_scatter_tpu_torch.ops.welch import welch_freqs
 
 NOT_PORTED = "is not yet ported to meteor_scatter_tpu_torch (use meteor_scatter_tpu.apps.live)"
 EVENT_FIELDS = StreamEvents._fields[:7]
@@ -44,9 +51,12 @@ class LiveSession:
     """Stateful wrapper: feed audio chunks, collect DetectedMeteor dicts.
 
     The detection state stays on ``device`` between chunks; only each
-    chunk's completed events cross to the host.  The reference package's
-    waterfall ring and export queue serve the UI and the spectrogram
-    export, which are not yet ported: asking for either raises.
+    chunk's completed events cross to the host.  With a spectrogram export
+    asked for (``spec.output_dir``), each feed's PSD waterfall also crosses
+    to the host ring (`processor.py:223-229`) and pending events are
+    exported once their window is inside it (`processor.py:294-343`);
+    otherwise the ring stays empty.  The live UI is not yet ported: asking
+    for it raises.
     """
 
     def __init__(
@@ -61,20 +71,26 @@ class LiveSession:
     ):
         if vis is not None and vis.enable_ui_plots:
             raise NotImplementedError(f"the live UI (--ui) {NOT_PORTED}")
-        if spec is not None and spec.output_dir:
-            raise NotImplementedError(f"spectrogram export (--spec-export-dir) {NOT_PORTED}")
         self.cfg = cfg
         self.fs = fs
         self.device = resolve_device(device)
-        # bins-only front half (no PSD waterfall), an opt-in throughput mode
-        # (models/streaming.py stream_front_headless)
-        self.headless = headless
+        self.vis = vis or VisualizationConfig()
+        self.spec = spec or SpecExportConfig()
+        # bins-only front half (no PSD waterfall, so no spec export), an
+        # opt-in throughput mode (models/streaming.py stream_front_headless)
+        self.headless = headless and not self.spec.output_dir
         # block-rate solver: "auto" (fused on a GPU, scan on the CPU, see
         # models/streaming.py resolve_stream_auto), "scan" or "fused"
         self.impl = impl
         self.state = stream_init(StreamConfig.from_config(cfg), self.device)
         self.block_samples = int(round(cfg.proc_block_sec * fs))
+        self.wf_win = int(self.vis.max_range_sec / cfg.proc_block_sec)
+        self.freqs = welch_freqs(fs, cfg.n_fft)
+        self.wf_db: List[np.ndarray] = []
+        self.wf_times: List[float] = []
         self.events: List[dict] = []
+        self._pending_export: List[dict] = []
+        self._blocks_fed = 0
 
     def feed(self, samples: np.ndarray) -> List[dict]:
         """Process a chunk (any whole number of blocks).  Returns events
@@ -84,19 +100,58 @@ class LiveSession:
             return []
         usable = n_blocks * self.block_samples
         x = torch.as_tensor(np.asarray(samples[:usable], dtype=np.float32)).to(self.device)
-        self.state, events, _ = stream_process(
+        self.state, events, diags = stream_process(
             self.cfg, self.state, x, self.fs,
             front="bins" if self.headless else "welch",
             impl=self.impl,
         )
 
+        # waterfall ring, only for the export (it is all it serves here)
+        if self.spec.output_dir:
+            psd_db = diags["psd_db"].cpu().numpy()
+            for b in range(n_blocks):
+                self.wf_db.append(psd_db[b])
+                self.wf_times.append((self._blocks_fed + b + 1) * self.cfg.proc_block_sec)
+            self.wf_db = self.wf_db[-self.wf_win :]
+            self.wf_times = self.wf_times[-self.wf_win :]
+        self._blocks_fed += n_blocks
+
         cnt = int(events.count)
         host = {f: getattr(events, f)[:cnt].cpu().numpy() for f in EVENT_FIELDS}
         new = [{f: float(host[f][i]) for f in EVENT_FIELDS} for i in range(cnt)]
         self.events.extend(new)
+        if self.spec.output_dir:
+            self._pending_export.extend(new)
         if bool(events.overflow):
             print("WARNING: per-chunk event buffer overflow")
+        self._try_exports()
         return new
+
+    def _try_exports(self) -> None:
+        if not self._pending_export:
+            return
+        psd_mean = float(self.state.psd_db_mean_from_init)
+        still = []
+        for ev in self._pending_export:
+            path = export_waterfall_window(
+                self.spec.output_dir,
+                np.asarray(self.wf_db),
+                self.freqs,
+                self.wf_times,
+                ev["time_start"],
+                ev["time_stop"],
+                self.cfg.signal_freq,
+                limit_freq_offset=self.vis.limit_freq_offset_wf2_and_export,
+                vmin=psd_mean - self.vis.wf_offset_vmin,
+                vmax=psd_mean + self.vis.wf_offset_vmax,
+                time_before_sec=self.spec.time_before_meteor_sec,
+                time_after_sec=self.spec.time_after_meteor_sec,
+            )
+            if path is None:
+                still.append(ev)  # window not yet inside the ring
+            elif self.vis.enable_debug_logs:
+                print(f"Saved Meteor to {path}")
+        self._pending_export = still
 
 
 def wav_file_process(
@@ -157,7 +212,7 @@ def main(argv=None) -> int:
     p.add_argument("--start-sec", type=float, default=0.0)
     p.add_argument("--stop-sec", type=float, default=-1.0)
     p.add_argument("--sample-rate", type=int, default=None)
-    p.add_argument("--spec-export-dir", default="", help="not yet ported; raises")
+    p.add_argument("--spec-export-dir", default="")
     p.add_argument("--ui", action="store_true", help="not yet ported; raises")
     p.add_argument("--realtime-factor", type=float, default=16.0,
                    help="pace of the live UI (not yet ported)")
@@ -175,8 +230,6 @@ def main(argv=None) -> int:
         p.error("--headless excludes --ui and --spec-export-dir (both need the PSD waterfall)")
     if args.ui:
         raise NotImplementedError(f"--ui (the live dashboard) {NOT_PORTED}")
-    if args.spec_export_dir:
-        raise NotImplementedError(f"--spec-export-dir (per-event waterfall PNGs) {NOT_PORTED}")
     if args.impl in ("jump", "hop"):
         raise NotImplementedError(f"--impl {args.impl} (episode-jump solver) {NOT_PORTED}")
 
@@ -189,10 +242,14 @@ def main(argv=None) -> int:
         detection_dur_min_sec=args.min_dur,
         detection_db_over_noise_mean_min=args.min_mean_db,
     )
+    spec = SpecExportConfig(output_dir=args.spec_export_dir)
+    if args.spec_export_dir:
+        os.makedirs(args.spec_export_dir, exist_ok=True)
     events = wav_file_process(
         args.wav,
         cfg,
         config_visualization=VisualizationConfig(realtime_factor=args.realtime_factor),
+        config_spec_export=spec,
         wav_file_start_sec=args.start_sec,
         wav_file_stop_sec=args.stop_sec,
         expected_sample_rate=args.sample_rate,

@@ -1,4 +1,4 @@
-"""Configuration of the port's streaming detector.
+"""Configuration of the port's detectors and segment monitor.
 
 The port's own copy of the dataclasses it uses from
 `meteor_scatter_tpu/config.py` (the port imports nothing of the JAX
@@ -76,3 +76,22 @@ class SpecExportConfig:
     output_dir: str = ""
     time_before_meteor_sec: int = 3
     time_after_meteor_sec: int = 3
+
+
+@dataclass(frozen=True)
+class MonitorConfig:
+    """Live segment monitor (reference: meteor_detect_class/prime_detection.py:17-28)."""
+
+    sample_rate: int = 5000
+    segment_len_sec: int = 30
+    n_fft: int = 2048
+    spec_cut_factor: float = 8.0  # C_MS_SPEC_CUT_FACTOR
+    cluster_epsilon: float = 30.0  # C_MS_CLUSTER_EPSILON (px)
+    cluster_min_samples: int = 5  # C_MS_CLUSTER_MIN_SAMPLES
+    critical_min_width_px: float = 5.0  # detector_and_classification.py:50
+    keypoint_mode: str = "threshold"  # or "corner" (ORB-like Harris keypoints)
+    noise_floor_band: Tuple[float, float] = (250.0, 800.0)  # prime_detection.py:69-71
+    display_band: Tuple[float, float] = (800.0, 1200.0)  # prime_detection.py:89
+    csv_out_dir: str = "csv-out"
+    spec_out_dir: str = "spec-out"
+    save_interval_min: float = 59.8  # prime_detection.py:109

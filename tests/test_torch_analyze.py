@@ -94,10 +94,12 @@ def test_fused_twin_equals_parallel(wav):
 
 
 def test_unported_outputs_raise(wav, tmp_path):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tan.main([wav, "--device", "cpu", "--out-spec-dir", str(tmp_path / "spec")])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tan.main([wav, "--device", "cpu", "--plot-dir", str(tmp_path / "plots")])
+    # --out-spec-dir is ported (tests/test_torch_monitor.py); --plot-dir
+    # still raises, before anything is written
+    with pytest.raises(NotImplementedError, match="--plot-dir.*not yet ported"):
+        tan.main([wav, "--device", "cpu", "--out-spec-dir", str(tmp_path / "spec"),
+                  "--plot-dir", str(tmp_path / "plots")])
+    assert not (tmp_path / "spec").exists() and not (tmp_path / "plots").exists()
 
 
 def test_cuda_requested_without_gpu_raises(wav, monkeypatch):
@@ -151,13 +153,14 @@ def test_parse_gqrx_start_time_matches_jax(name):
 
 def test_jax_free_import_and_run(tmp_path):
     """Every module of the port imports with ``import jax`` failing, the
-    analyzer (both adaptive solvers), the live detector (welch and
-    headless) and the wideband front end (real and I/Q) run end to end on
-    the CPU, and afterwards no module of JAX or of the JAX package
+    analyzer (both adaptive solvers, and its spectrogram PNGs), the live
+    detector (welch and headless, and its waterfall PNGs), the wideband
+    front end (real and I/Q) and the segment monitor run end to end on the
+    CPU, and afterwards no module of JAX or of the JAX package
     ``meteor_scatter_tpu`` is loaded."""
     code = textwrap.dedent(
         """
-        import contextlib, importlib, io, pkgutil, sys
+        import contextlib, importlib, io, os, pkgutil, sys
         sys.modules["jax"] = None  # any `import jax` now raises ImportError
         import numpy as np
         import meteor_scatter_tpu_torch as pkg
@@ -174,15 +177,20 @@ def test_jax_free_import_and_run(tmp_path):
         for impl in ("parallel", "fused"):
             res = proc_wav_file(path, device="cpu", impl=impl, verbose=False)
             assert [(d.t_start, d.t_stop) for d in res.detections] == [(40.0, 41.0)], res.detections
+        spec = sys.argv[1] + "/spec"
+        proc_wav_file(path, device="cpu", verbose=False, outfile_path=spec)
+        assert os.listdir(spec) == ["spec_and_psd_40.00_41.00.png"], os.listdir(spec)
         y = rng.standard_normal(4000 * 40) * 0.05
         y[4000 * 20 : 4000 * 21] += 0.6 * np.sin(2 * np.pi * 1000.0 * np.arange(4000) / 4000)
         path = sys.argv[1] + "/live.wav"
         write_wav(path, 4000, np.round(y * 32768).astype(np.int16))
-        for extra in ([], ["--headless"]):
+        wf = sys.argv[1] + "/wf"
+        for extra in ([], ["--headless"], ["--spec-export-dir", wf]):
             out = io.StringIO()
             with contextlib.redirect_stdout(out):
                 assert live.main([path, "--device", "cpu", "--min-dur", "0.5", *extra]) == 0
             assert "start=20.00s" in out.getvalue() and "Total detected meteors: 1" in out.getvalue()
+        assert len(os.listdir(wf)) == 1 and os.listdir(wf)[0].startswith("spec_20.00_"), os.listdir(wf)
         from meteor_scatter_tpu_torch.apps import frontend
         for extra in ([], ["--iq"]):
             out = io.StringIO()
@@ -193,6 +201,19 @@ def test_jax_free_import_and_run(tmp_path):
             stations = [ln for ln in out.getvalue().splitlines() if ln.startswith("station ")]
             # the second burst of each station starts past the 10 s fixed start
             assert len(stations) == 2 and all(": 2 events" in ln for ln in stations), out.getvalue()
+        from meteor_scatter_tpu_torch.apps import monitor
+        z = rng.standard_normal(5000 * 60) * 0.3
+        z[5000 * 10 : 5000 * 11] += 3.0 * np.sin(2 * np.pi * 1000.0 * np.arange(5000) / 5000)
+        path = sys.argv[1] + "/mon.wav"
+        write_wav(path, 5000, np.round(z * 3000).astype(np.int16))
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert monitor.main(["--wav", path, "--device", "cpu", "--csv-out", sys.argv[1] + "/csv",
+                                 "--spec-out", sys.argv[1] + "/png",
+                                 "--start-time", "2026-08-17T12:00:00"]) == 0
+        assert out.getvalue().count("Critical bursts this segment") == 2, out.getvalue()
+        assert len(os.listdir(sys.argv[1] + "/png")) >= 1
+        assert "20260817.csv" in os.listdir(sys.argv[1] + "/csv")
         loaded = [k for k, v in sys.modules.items() if v is not None and (
             k.split(".")[0] == "jax" or k == "meteor_scatter_tpu"
             or k.startswith("meteor_scatter_tpu."))]

@@ -83,7 +83,7 @@ def test_chunking_and_impls_agree(wav, capsys):
     "extra,match",
     [
         (["--ui"], "--ui"),
-        (["--spec-export-dir", "spec"], "--spec-export-dir"),
+        (["--ui", "--spec-export-dir", "spec"], "--ui"),
         (["--impl", "jump"], "jump"),
         (["--impl", "hop"], "hop"),
     ],
@@ -99,9 +99,11 @@ def test_session_rejects_ui_and_export_and_missing_gpu(monkeypatch):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tlive.LiveSession(DetectionConfig(), FS, vis=VisualizationConfig(enable_ui_plots=True),
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tlive.LiveSession(DetectionConfig(), FS, spec=tlive.SpecExportConfig(output_dir="x"),
-                          device="cpu")
+    # the spectrogram export is ported: a session takes it, and keeps the
+    # Welch front that fills its waterfall ring even when asked for headless
+    sess = tlive.LiveSession(DetectionConfig(), FS, spec=tlive.SpecExportConfig(output_dir="x"),
+                             headless=True, device="cpu")
+    assert not sess.headless and sess.wf_db == [] and sess.wf_win == 300
     with pytest.raises(SystemExit):  # argparse error, as in the reference CLI
         tlive.main(["x.wav", "--headless", "--ui"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
