@@ -69,6 +69,17 @@ non-zero (there is no CPU fallback):
    one segment; then ``apps.monitor.main --wav`` over a synthetic 6 h day
    from 21:00 (the daily CSVs byte-equal to the port's ledger fed the
    truth on the same clock, one PNG per burst segment).
+12. e2e_sharded — the multi-device layer on virtual meshes that repeat the
+   card: the port's ``dryrun_multichip`` on a 2 x 4 mesh (every assertion
+   of the JAX package's); BASELINE config 5 (the stations fixture) through
+   ``sharded_stream_process(front="bins", impl="fused")`` on a 2 x 4 mesh
+   (K3 once per mesh position) against the unsharded ``stream_process``,
+   events equal; BASELINE config 4 (the at-spec I/Q fixture) framed per
+   time shard through ``sharded_channelize_iq_frames`` on a 1 x 4 mesh
+   against ``channelize_iq_frames``, then ``detect_channels`` on a 2 x 1
+   mesh against no mesh; ``init_multihost`` without settings and a
+   world-size-1 NCCL group's heartbeat.  Its K3 launches are printed on its
+   line and not added to the kernel records' counts.
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after.  The last three lines are the ``nvidia-smi`` line, one
@@ -151,6 +162,12 @@ EVENT_CAP = 512  # detect_channels' buffer: a count below it means no overflow
 # 2 MS/s I/Q, 8 stations, 1000 Hz tone at 4 kHz audio, decimation 500,
 # 2 001 taps, 1 500 Hz channels, 60 s with 4 bursts a station (seed 3).
 IQ_SECONDS, IQ_AUDIO_RATE, IQ_DECIM, IQ_NUMTAPS, IQ_BANDWIDTH = 60.0, 4000, 500, 2001, 1500.0
+# The bank sharded over 4 time shards against the unsharded bank, relative
+# to the outputs' RMS: one more float32 rotation a sample (~1e-7), and GEMMs
+# of m / 4 rows that cuBLAS may reduce in another order (q = 500 terms, a
+# few float32 ulps of the partial sums) -- ~1e-6 of the RMS; 1e-4 leaves
+# room for the sum of 5 tap columns at the bursts' peaks.
+IQ_SHARD_REL_TOL = 1e-4
 # The segment monitor (the reference's 24/7 loop, MonitorConfig defaults):
 # 30 s segments at 5 kHz. The batch fixture is the JAX package's
 # bench.py::image_pipeline (8 segments, seed 11, noise std 300, 1 s 1000 Hz
@@ -902,18 +919,14 @@ def phase_e2e_live(tmp: str) -> dict:
     return out
 
 
-def phase_e2e_stations() -> dict:
-    """64 stations x 600 s (the fixture of the reference package's stations
-    benchmark, seed 7), uploaded pre-blocked; one K3 launch for the batch."""
+def stations_fixture():
+    """BASELINE config 5: 64 stations x 600 s at 4 kHz (the fixture of the
+    reference package's stations benchmark, seed 7), a 1 s tone a station,
+    uploaded pre-blocked.  Returns (x (64, 3 000, 800) on the card, the
+    samples a station, the tones' start times)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    from meteor_scatter_tpu_torch.models import streaming as st
-    from meteor_scatter_tpu_torch.ops.kernels import stream_kernel as sk
-
-    cfg = live_config()
-    scfg = st.StreamConfig.from_config(cfg)
-    block = int(round(cfg.proc_block_sec * LIVE_FS))
+    block = int(round(BLOCK_SEC * LIVE_FS))
     n = int(LIVE_FS * STATION_SECONDS) // block * block
     rng = np.random.default_rng(7)
     x_np = rng.standard_normal((STATIONS, n)).astype(np.float32) * 0.3
@@ -924,8 +937,21 @@ def phase_e2e_stations() -> dict:
         m = (t >= s0) & (t < s0 + 1.0)
         x_np[c, m] += 1.5 * np.sin(2 * np.pi * LIVE_TONE_HZ * t[m]).astype(np.float32)
         tones.append(s0)
-    x = torch.from_numpy(x_np.reshape(STATIONS, n // block, block)).to(DEVICE)
-    del x_np
+    return torch.from_numpy(x_np.reshape(STATIONS, n // block, block)).to(DEVICE), n, tones
+
+
+def phase_e2e_stations() -> dict:
+    """64 stations x 600 s (:func:`stations_fixture`), uploaded pre-blocked;
+    one K3 launch for the batch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from meteor_scatter_tpu_torch.models import streaming as st
+    from meteor_scatter_tpu_torch.ops.kernels import stream_kernel as sk
+
+    cfg = live_config()
+    scfg = st.StreamConfig.from_config(cfg)
+    x, n, tones = stations_fixture()
     st0 = st.stream_init_batch(scfg, STATIONS, DEVICE)
 
     # --- the main path: bins front, then one fused launch for all stations ---
@@ -1123,24 +1149,34 @@ def phase_e2e_frontend() -> dict:
     return out
 
 
-def phase_e2e_frontend_iq() -> dict:
-    """BASELINE config 4 at spec: 60 s of 2 MS/s I/Q, 8 stations, uploaded
+def frontend_iq_fixture() -> dict:
+    """BASELINE config 4 at spec: 60 s of 2 MS/s I/Q, 8 stations centred on
+    0 Hz, 4 bursts a station (seed 3), on the host."""
+    from meteor_scatter_tpu_torch.apps import frontend as fe
+
+    freqs = fe.station_freqs(FRONTEND_STATIONS, FRONTEND_BASE_HZ, FRONTEND_SPACING_HZ, True)
+    t0 = time.perf_counter()
+    x_re, x_im, truth = fe.synth_wideband_iq(int(FRONTEND_FS), IQ_SECONDS, freqs,
+                                             bursts_per_station=4, seed=3)
+    return {"x_re": x_re, "x_im": x_im, "truth": truth, "freqs": freqs,
+            "centers": np.asarray([f - LIVE_TONE_HZ for f in freqs]),
+            "synth_s": time.perf_counter() - t0}
+
+
+def phase_e2e_frontend_iq(iq: dict) -> dict:
+    """BASELINE config 4 at spec (:func:`frontend_iq_fixture`), uploaded
     pre-framed, through ``channelize_iq_frames`` → ``stream_front_headless``
     → ``stream_scan_fused_batch`` (one K3 launch for the 8 stations)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from meteor_scatter_tpu_torch.apps import frontend as fe
     from meteor_scatter_tpu_torch.models import streaming as st
     from meteor_scatter_tpu_torch.ops import fir
 
     fs = int(FRONTEND_FS)
-    tone = LIVE_TONE_HZ
-    freqs = fe.station_freqs(FRONTEND_STATIONS, FRONTEND_BASE_HZ, FRONTEND_SPACING_HZ, True)
-    centers = np.asarray([f - tone for f in freqs])
-    t0 = time.perf_counter()
-    x_re, x_im, truth = fe.synth_wideband_iq(fs, IQ_SECONDS, freqs, bursts_per_station=4, seed=3)
-    synth_s = time.perf_counter() - t0
+    x_re, x_im, truth, freqs, centers = (iq[k] for k in ("x_re", "x_im", "truth", "freqs",
+                                                         "centers"))
+    synth_s = iq["synth_s"]
     cfg = live_config()
     scfg = st.StreamConfig.from_config(cfg)
     plan, tables = fir.channel_bank_plan(x_re.size, fs, centers, IQ_BANDWIDTH, IQ_DECIM,
@@ -1478,6 +1514,188 @@ def phase_e2e_spec_export(tmp: str) -> dict:
     return out
 
 
+def max_dev(a, b) -> float:
+    """The largest |a - b| where both are numbers (NaN where both are NaN
+    counts as equal)."""
+    import torch
+
+    both_nan = torch.isnan(a) & torch.isnan(b)
+    if bool((torch.isnan(a) != torch.isnan(b)).any()):
+        return math.inf
+    return float(torch.where(both_nan, 0.0, (a - b).abs()).max())
+
+
+def phase_e2e_sharded(tmp: str, iq: dict) -> dict:
+    """The multi-device layer on virtual meshes of the one card: (a) the
+    dryrun on a 2 x 4 mesh; (b) BASELINE config 5 (:func:`stations_fixture`)
+    through ``sharded_stream_process(front="bins", impl="fused")`` on a
+    2 x 4 mesh against the unsharded batched ``stream_process`` and its
+    eight K3 launches against K3's twin on the gathered series; (c)
+    BASELINE config 4 (:func:`frontend_iq_fixture`) framed per time shard
+    through ``sharded_channelize_iq_frames`` on a 1 x 4 mesh against
+    ``channelize_iq_frames``, then ``detect_channels`` on a 2 x 1 mesh
+    against no mesh; (d) the multi-process runtime on a world-size-1 NCCL
+    group.  K3's launches here are this line's, not the kernel records'."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from meteor_scatter_tpu_torch.apps import frontend as fe
+    from meteor_scatter_tpu_torch.models import adaptive
+    from meteor_scatter_tpu_torch.models import streaming as st
+    from meteor_scatter_tpu_torch.ops import fir
+    from meteor_scatter_tpu_torch.ops.kernels import stream_kernel as sk
+    from meteor_scatter_tpu_torch.parallel import distributed as pdist
+    from meteor_scatter_tpu_torch.parallel.dryrun import dryrun_multichip
+    from meteor_scatter_tpu_torch.parallel.mesh import make_mesh
+    from meteor_scatter_tpu_torch.parallel.sharded import (
+        _iq_bank_setup,
+        sharded_channelize_iq_frames,
+        sharded_stream_process,
+    )
+
+    card = f"{DEVICE}:{torch.cuda.current_device()}"
+    out = {"phase": "e2e_sharded", "nvidia_smi": nvidia_smi_line(),
+           "note": "virtual meshes that repeat one card: the times measure the shard "
+                   "bookkeeping (halo copies, per-position launches), not scaling across cards"}
+
+    # --- (a) the dryrun: every assertion of the JAX package's dryrun_multichip ---
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        line = dryrun_multichip(8, devices=[card] * 8)
+    out["dryrun"] = {"mesh": [2, 4], "wall_s": time.perf_counter() - t0, "line": line,
+                     "k3_launches": sk.launches}
+
+    # --- (b) BASELINE config 5: 64 stations, 2 x 4 mesh, bins front, K3 ---
+    cfg = live_config()
+    scfg = st.StreamConfig.from_config(cfg)
+    x, n, _ = stations_fixture()
+    st0 = st.stream_init_batch(scfg, STATIONS, DEVICE)
+    mesh = make_mesh(2, 4, [card] * 8)
+
+    def sharded():
+        return sharded_stream_process(cfg, st0, x, LIVE_FS, mesh, front="bins", impl="fused")
+
+    def unsharded():
+        return st.stream_process(cfg, st0, x, LIVE_FS, front="bins", impl="fused")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sk.launches = 0
+    state_s, ev_s, dg_s = sharded()
+    torch.cuda.synchronize()
+    k3 = sk.launches
+    peak = torch.cuda.max_memory_allocated()
+    _, ev_u, dg_u = unsharded()
+    same = all(torch.equal(getattr(ev_s, f), getattr(ev_u, f))
+               for f in ("count", "time_start", "time_stop"))
+    # the eight launches against K3's twin on the gathered series: every
+    # state and event leaf and the thresholds, bit for bit
+    on_s = dg_s["over_noise"]
+    state_t, ev_t, thr_t = st.stream_scan(scfg, st0, on_s, torch.zeros_like(on_s))
+    twin = all(bits_equal(a, b) for a, b in zip((*state_s, *ev_s, dg_s["threshold"]),
+                                                (*state_t, *ev_t, thr_t)))
+    if k3 != 8 or not same or not twin or bool(ev_s.overflow.any() | ev_u.overflow.any()):
+        raise AssertionError(f"sharded stations: K3 launched {k3} times (expected 8), events "
+                             f"equal {same}, bit-equal to the twin {twin}, overflow "
+                             f"{bool(ev_s.overflow.any())}")
+    out["stations"] = {
+        "mesh": [2, 4], "stations": STATIONS, "blocks": int(dg_u["over_noise"].shape[1]),
+        "k3_launches": k3, "k3_shape": [int(dg_u["over_noise"].shape[1]), STATIONS // 2],
+        "events": int(ev_u.count.sum()), "events_equal": True, "twin_bit_equal": True,
+        "threshold_max_abs_dev": max_dev(dg_s["threshold"], dg_u["threshold"]),
+        "threshold_bit_equal": bits_equal(dg_s["threshold"], dg_u["threshold"]),
+        "over_noise_max_abs_dev": max_dev(dg_s["over_noise"], dg_u["over_noise"]),
+        "over_noise_bit_equal": bits_equal(dg_s["over_noise"], dg_u["over_noise"]),
+        "sharded_ms": cuda_ms(sharded, warmup=1, reps=9),
+        "unsharded_ms": cuda_ms(unsharded, warmup=1, reps=9),
+        "peak_device_bytes_sharded": peak,
+    }
+    del x, dg_s, dg_u, on_s, state_t, ev_t, thr_t
+    torch.cuda.empty_cache()
+
+    # --- (c) BASELINE config 4: pre-framed per time shard, 1 x 4 mesh ---
+    fs = int(FRONTEND_FS)
+    centers = iq["centers"]
+    stacked = np.stack([iq["x_re"], iq["x_im"]])
+    bank = (IQ_BANDWIDTH, IQ_DECIM, IQ_NUMTAPS)
+    plan, tables = fir.channel_bank_plan(stacked.shape[-1], fs, centers, *bank, device=DEVICE)
+    f = torch.from_numpy(fir.frame_capture_host(stacked, plan)).to(DEVICE)
+    f_sh = torch.from_numpy(fir.frame_capture_sharded_host(stacked, plan, 4)).to(DEVICE)
+    del stacked
+    mesh4 = make_mesh(1, 4, [card] * 4)
+    y_s = sharded_channelize_iq_frames(f_sh, mesh4, fs, centers, *bank)
+    y_u = fir.channelize_iq_frames(f, tables, plan)
+    rms = math.sqrt(float(sum((y * y).mean() for y in y_u)) / 2)
+    err = max(float((a - b).abs().max()) for a, b in zip(y_s, y_u))
+    if not err <= IQ_SHARD_REL_TOL * rms:
+        raise AssertionError(f"sharded IQ bank: max |sharded - unsharded| {err} > "
+                             f"{IQ_SHARD_REL_TOL} x RMS {rms}")
+    audio = y_u[0]
+    det = dict(audio_rate=IQ_AUDIO_RATE, tone_freq=LIVE_TONE_HZ)
+    mesh21 = make_mesh(2, 1, [card] * 2)
+    ev_m, d_m = fe.detect_channels(audio, mesh=mesh21, **det)
+    ev_0, d_0 = fe.detect_channels(audio, **det)
+    card_m, card_0 = events_to_host(ev_m), events_to_host(ev_0)
+    same = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+               for a, b in zip(card_m, card_0)) and bool(torch.equal(ev_m.overflow, ev_0.overflow))
+    db_err = max((float(np.abs(a[2] - b[2]).max()) for a, b in zip(card_m, card_0) if a[2].size),
+                 default=0.0)
+    n_ev = sum(a[0].size for a in card_0)
+    if not same or db_err > FRONTEND_DB_TOL or n_ev == 0 or bool(ev_0.overflow.any()):
+        raise AssertionError(f"detect_channels(mesh=2x1) differs from no mesh: starts/stops "
+                             f"equal {same}, dB err {db_err}, {n_ev} events")
+    blocks = int(d_0.shape[1])
+    t0 = time.perf_counter()
+    _iq_bank_setup(plan["n"], fs, centers, *bank, 4)  # the host half of every sharded call
+    setup_s = time.perf_counter() - t0
+    out["frontend_iq"] = {
+        "bank_mesh": [1, 4], "frames_sharded": list(f_sh.shape), "frames": list(f.shape),
+        "bank_max_abs_err": err, "bank_rms": rms, "bank_rel_tol": IQ_SHARD_REL_TOL,
+        "bank_sharded_ms": cuda_ms(lambda: sharded_channelize_iq_frames(f_sh, mesh4, fs, centers,
+                                                                        *bank), warmup=1, reps=9),
+        "bank_unsharded_ms": cuda_ms(lambda: fir.channelize_iq_frames(f, tables, plan),
+                                     warmup=1, reps=9),
+        "bank_sharded_host_setup_ms": setup_s * 1e3,
+        "detect_mesh": [2, 1], "blocks": blocks, "events": n_ev, "events_equal": True,
+        "event_db_max_abs_err": db_err, "delta_max_abs_dev": max_dev(d_m, d_0),
+        "delta_bit_equal": bits_equal(d_m, d_0),
+        "detect_sharded_ms": cuda_ms(lambda: fe.detect_channels(audio, mesh=mesh21, **det),
+                                     warmup=1, reps=5),
+        "detect_unsharded_ms": cuda_ms(lambda: fe.detect_channels(audio, **det), warmup=1, reps=5),
+        # detect_channels' defaults at 0.2 s blocks are SOLVER's
+        "scan_ms": cuda_ms(lambda: adaptive.adaptive_thresholds(d_0, **SOLVER), warmup=1, reps=5),
+        "scan_shape": list(d_0.shape),
+    }
+    del f, f_sh, y_s, y_u, audio
+    torch.cuda.empty_cache()
+
+    # --- (d) the runtime: no process group without settings; NCCL of one ---
+    env = {k: os.environ.pop(k) for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
+           if k in os.environ}
+    try:
+        single = pdist.init_multihost()
+    finally:
+        os.environ.update(env)
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'nccl_store')}",
+                            world_size=1, rank=0, timeout=datetime.timedelta(seconds=120))
+    try:
+        beat = pdist.Heartbeat().check()
+        info = pdist.host_shard_info(STATIONS)
+    finally:
+        dist.destroy_process_group()
+    want = pdist.HostShard(0, 1, (0, STATIONS), torch.cuda.device_count())
+    if single is not False or not beat or info != want:
+        raise AssertionError(f"runtime: init_multihost() {single}, heartbeat {beat}, {info}")
+    out["runtime"] = {"init_multihost_without_env": single, "nccl_world_1_heartbeat": beat,
+                      "host_shard": [info.process_id, info.num_processes,
+                                     list(info.station_range), info.local_devices]}
+    emit(out)
+    return out
+
+
 def port_modules_loaded_from_jax() -> list:
     """JAX or JAX-package modules present in this process."""
     return [k for k, v in sys.modules.items() if v is not None and (
@@ -1511,9 +1729,12 @@ def main() -> int:
         phase_e2e_spec_export(tmp)
     e2e_st = phase_e2e_stations()
     phase_e2e_frontend()
-    e2e_fiq = phase_e2e_frontend_iq()
+    iq = frontend_iq_fixture()
+    e2e_fiq = phase_e2e_frontend_iq(iq)
     with tempfile.TemporaryDirectory() as tmp:
         phase_e2e_monitor(tmp)
+        phase_e2e_sharded(tmp, iq)
+    del iq
     loaded = port_modules_loaded_from_jax()
     if loaded:
         raise AssertionError(f"the port loaded JAX or the JAX package: {loaded[:5]}")

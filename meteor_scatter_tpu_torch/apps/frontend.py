@@ -13,8 +13,8 @@ Synthetic demo::
 
     python -m meteor_scatter_tpu_torch.apps.frontend --stations 8 --seconds 30 [--iq] --device cuda
 
-Not yet ported: ``detect_channels(mesh=...)``, the (station, time) sharded
-pipeline (``parallel/`` is a later slice); it raises.
+``detect_channels(mesh=...)`` runs the detection over a (station, time)
+mesh (:mod:`meteor_scatter_tpu_torch.parallel`).
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ from meteor_scatter_tpu_torch.ops.fir import (
     resample_poly,
 )
 from meteor_scatter_tpu_torch.ops.framing import frame_signal
+from meteor_scatter_tpu_torch.parallel.sharded import sharded_delta_power, sharded_detect_adaptive
 
 TONE_FREQ = 1003.0  # audio-domain beacon tone (main.py:827)
 
@@ -138,30 +139,33 @@ def detect_channels(
     mesh=None,
     cap: int = 512,
 ) -> Tuple[Events, torch.Tensor]:
-    """Per-channel adaptive detection on ``audio``'s device, every channel
-    at once: band power as one product, the fixpoint solver over the
-    (C, B) delta series, events row by row.  Returns (events with fields
-    (C, cap) and count / overflow (C,), delta (C, B))."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "detect_channels(mesh=...) is not yet ported (parallel/ is a later slice); "
-            "use meteor_scatter_tpu.apps.frontend"
-        )
+    """Per-channel adaptive detection, every channel at once: band power as
+    one product, the adaptive detector over the (C, B) delta series, events
+    row by row.  Without a mesh it runs on ``audio``'s device with the
+    fixpoint solver; with a (station, time) mesh
+    (:func:`~meteor_scatter_tpu_torch.parallel.mesh.make_mesh`) through
+    ``sharded_delta_power`` and the warm-started ``sharded_detect_adaptive``,
+    with the results on the mesh's first device.  Returns (events with
+    fields (C, cap) and count / overflow (C,), delta (C, B))."""
     block = int(audio_rate * block_duration_sec)
     fb = (tone_freq - bandwidth, tone_freq + bandwidth)
     nb = (noise_freq - bandwidth, noise_freq + bandwidth)
-    M, slices = band_projection_matrix(audio_rate, n_fft, block, [fb, nb])
-    frames = frame_signal(audio.to(torch.float32), block, block)
-    band, noise = band_power_db(frames, torch.from_numpy(M).to(audio.device), slices)
-    delta = band - noise
-    _, above = adaptive_thresholds_parallel(
-        delta,
-        threshold_std_factor,
-        int(threshold_estimation_window_sec / block_duration_sec),
-        int(threshold_freeze_before_sec / block_duration_sec),
-        int(threshold_freeze_after_sec / block_duration_sec),
-        int(threshold_fixed_init_sec / block_duration_sec),
+    kw = dict(
+        threshold_std_factor=threshold_std_factor,
+        window_blocks=int(threshold_estimation_window_sec / block_duration_sec),
+        freeze_blocks_before=int(threshold_freeze_before_sec / block_duration_sec),
+        freeze_blocks_after=int(threshold_freeze_after_sec / block_duration_sec),
+        fixed_threshold_blocks=int(threshold_fixed_init_sec / block_duration_sec),
     )
+    if mesh is not None:
+        _, _, delta = sharded_delta_power(audio, mesh, audio_rate, n_fft, block, fb, nb)
+        _, above = sharded_detect_adaptive(delta, mesh, **kw)
+    else:
+        M, slices = band_projection_matrix(audio_rate, n_fft, block, [fb, nb])
+        frames = frame_signal(audio.to(torch.float32), block, block)
+        band, noise = band_power_db(frames, torch.from_numpy(M).to(audio.device), slices)
+        delta = band - noise
+        _, above = adaptive_thresholds_parallel(delta, **kw)
     return events_from_mask(above, delta, cap=cap), delta
 
 

@@ -19,6 +19,10 @@ Two solvers, both giving the same above mask:
   :mod:`meteor_scatter_tpu_torch.ops.kernels.adaptive_kernel` (the CUDA
   kernel on a GPU, its plain twin on the CPU), chunked exactly beyond
   ``MAX_FUSED_BLOCKS``, then :func:`events_from_run_sums`.
+
+The sequential recurrence itself, :func:`adaptive_thresholds` (a loop over
+blocks with a carry), serves chunked calls and the time-sharded warm start
+(:func:`meteor_scatter_tpu_torch.parallel.sharded.sharded_detect_adaptive`).
 """
 
 from __future__ import annotations
@@ -35,6 +39,96 @@ from meteor_scatter_tpu_torch.models.events import (
     truncate_events,
 )
 from meteor_scatter_tpu_torch.ops.kernels import adaptive_kernel as ak
+
+
+def adaptive_thresholds(
+    delta: torch.Tensor,
+    threshold_std_factor: float,
+    window_blocks: int,
+    freeze_blocks_before: int,
+    freeze_blocks_after: int,
+    fixed_threshold_blocks: int,
+    init_carry=None,
+    global_stats: Tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor, tuple]:
+    """Scan the freeze/threshold recurrence block by block (the reference's
+    ``lax.scan``), on ``delta``'s device.
+
+    ``delta`` is one series ``(B,)`` or a batch ``(C, B)`` scanned row by
+    row (the reference's ``jax.vmap``).  Returns ``(thresholds, above,
+    carry)``; the carry ``(ring (…, w), i (…), freeze_until (…), prev_thr
+    (…))`` holds, per row, the trailing deltas at slots ``i mod w``, the
+    absolute index of the next block, the freeze horizon and the last
+    threshold.  ``init_carry`` / the returned carry allow chunked execution
+    over long streams and warm-started time shards: feed the carry of chunk
+    c into chunk c+1.  The caller's carry is not written to.
+
+    ``global_stats=(mean, std)`` (per row) are the whole-series statistics
+    of the fixed initial threshold; pass them when processing in chunks
+    (the reference computes them over the full file).
+
+    Blocks with an absolute index below 0 (a time shard's warm-up replay
+    over shard 0's zero halo) never register as above, so shard 0 stays
+    equal to the unsharded scan even when the fixed threshold is negative.
+    """
+    squeeze = delta.dim() == 1
+    d2 = delta[None] if squeeze else delta
+    dtype = d2.dtype
+    dev = d2.device
+    c, n = d2.shape
+    w = window_blocks
+
+    def rows(a, dt):
+        return torch.as_tensor(a, device=dev).to(dt).reshape(-1).expand(c).clone()
+
+    if global_stats is None:
+        g_mean = d2.mean(-1)
+        g_std = d2.std(-1, correction=0)
+    else:
+        g_mean, g_std = (rows(g, dtype) for g in global_stats)
+    fixed = g_mean + threshold_std_factor * g_std
+
+    if init_carry is None:
+        ring = torch.zeros((c, w), dtype=dtype, device=dev)
+        i = torch.zeros(c, dtype=torch.int32, device=dev)
+        freeze_until = torch.full((c,), -1, dtype=torch.int32, device=dev)
+        prev_thr = fixed.to(dtype)
+    else:
+        ring0, i0, fz0, thr0 = init_carry
+        ring = ring0.to(device=dev, dtype=dtype).reshape(-1, w).expand(c, w).clone()
+        i, freeze_until = rows(i0, torch.int32), rows(fz0, torch.int32)
+        prev_thr = rows(thr0, dtype)
+
+    slot_ids = torch.arange(w, dtype=torch.int32, device=dev)
+    row_ids = torch.arange(c, device=dev)
+    thresholds = torch.empty((c, n), dtype=dtype, device=dev)
+    above = torch.empty((c, n), dtype=torch.bool, device=dev)
+    for b in range(n):
+        d = d2[:, b]
+        cnt = torch.clamp(i, max=w)
+        valid = slot_ids < cnt[:, None]  # the ring fills slots 0..i-1 before wrapping
+        cnt_f = torch.clamp(cnt, min=1).to(dtype)
+        m = torch.where(valid, ring, 0).sum(-1) / cnt_f
+        m2 = torch.where(valid, ring * ring, 0).sum(-1) / cnt_f
+        windowed = m + threshold_std_factor * torch.sqrt(torch.clamp(m2 - m * m, min=0))
+
+        in_fixed = i < fixed_threshold_blocks
+        can_update = ~in_fixed & (i > freeze_until)
+        thr = torch.where(in_fixed, fixed, torch.where(can_update, windowed, prev_thr)).to(dtype)
+        hit = (d > thr) & (i >= 0)
+        new_freeze = torch.maximum(i + freeze_blocks_after,
+                                   torch.clamp(i - freeze_blocks_before, min=0))
+        freeze_until = torch.where(hit, new_freeze, freeze_until)
+        # floor modulo, as jnp.mod: a negative index seeds the slot it wraps to
+        ring[row_ids, torch.remainder(i, w).long()] = d
+        thresholds[:, b] = thr
+        above[:, b] = hit
+        i = i + 1
+        prev_thr = thr
+    carry = (ring, i, freeze_until, prev_thr)
+    if squeeze:
+        return thresholds[0], above[0], tuple(a[0] for a in carry)
+    return thresholds, above, carry
 
 
 def adaptive_thresholds_parallel(

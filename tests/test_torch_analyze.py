@@ -155,8 +155,9 @@ def test_jax_free_import_and_run(tmp_path):
     """Every module of the port imports with ``import jax`` failing, the
     analyzer (both adaptive solvers, and its spectrogram PNGs), the live
     detector (welch and headless, and its waterfall PNGs), the wideband
-    front end (real and I/Q) and the segment monitor run end to end on the
-    CPU, and afterwards no module of JAX or of the JAX package
+    front end (real and I/Q), the segment monitor and the multi-device
+    dryrun (a virtual mesh of 8 CPU positions) run end to end on the CPU,
+    and afterwards no module of JAX or of the JAX package
     ``meteor_scatter_tpu`` is loaded."""
     code = textwrap.dedent(
         """
@@ -214,6 +215,10 @@ def test_jax_free_import_and_run(tmp_path):
         assert out.getvalue().count("Critical bursts this segment") == 2, out.getvalue()
         assert len(os.listdir(sys.argv[1] + "/png")) >= 1
         assert "20260817.csv" in os.listdir(sys.argv[1] + "/csv")
+        from meteor_scatter_tpu_torch.parallel.dryrun import dryrun_multichip
+        with contextlib.redirect_stdout(io.StringIO()):
+            line = dryrun_multichip(8, devices=["cpu"] * 8)
+        assert "events per channel: [3, 3]" in line, line
         loaded = [k for k, v in sys.modules.items() if v is not None and (
             k.split(".")[0] == "jax" or k == "meteor_scatter_tpu"
             or k.startswith("meteor_scatter_tpu."))]

@@ -120,9 +120,31 @@ def test_detect_channels_matches_jax(chain):
             assert np.abs(starts - t0).min() < 0.5, (c, t0, starts)
 
 
-def test_detect_channels_mesh_not_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tfe.detect_channels(torch.zeros(2, 6000), mesh=object())
+def test_detect_channels_mesh_matches_jax():
+    """detect_channels over a 2 x 4 mesh (the fixture of
+    tests/test_frontend.py::test_sharded_mesh_path: 32 s, 160 blocks, 40 a
+    time shard over a 20-block window) against the JAX package's on its
+    8-device mesh, on the same audio, and against the port without a mesh."""
+    from meteor_scatter_tpu.parallel.mesh import make_mesh as jmake_mesh
+    from meteor_scatter_tpu_torch.parallel.mesh import make_mesh
+
+    fs, stations = 48_000.0, [10_000.0, 16_000.0]
+    x, truth = tfe.synth_wideband(fs, 32.0, stations, bursts_per_station=1, seed=4)
+    audio = np.array(jfe.iq_frontend(x, fs, stations, tone_freq=1000.0))
+    kw = dict(DETECT, threshold_estimation_window_sec=4.0)
+    ev_t, delta_t = tfe.detect_channels(torch.from_numpy(audio), **kw,
+                                        mesh=make_mesh(2, 4, ["cpu"] * 8))
+    ev_j, delta_j = jfe.detect_channels(jnp.asarray(audio), **kw,
+                                        mesh=jmake_mesh(n_station=2, n_time=4))
+    ev_u, _ = tfe.detect_channels(torch.from_numpy(audio), **kw)
+    assert np.abs(delta_t.numpy() - np.asarray(delta_j)).max() <= DB_ATOL
+    for c in range(2):
+        assert int(ev_t.count[c]) >= 1, f"channel {c} found nothing"
+        assert_events_equal(tev.Events(*(f[c] for f in ev_t)),
+                            jax.tree_util.tree_map(lambda a: a[c], ev_j),
+                            db_rtol=0.0, db_atol=DB_ATOL)
+        assert_events_equal(tev.Events(*(f[c] for f in ev_t)),
+                            tev.Events(*(f[c] for f in ev_u)), db_rtol=0.0, db_atol=DB_ATOL)
 
 
 def test_iq_frontend_defaults_to_cuda(monkeypatch):

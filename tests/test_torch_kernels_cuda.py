@@ -15,8 +15,10 @@ the rounds (a smaller cap).  K3
 (the fused streaming solve) is bit-exact against its twin on thresholds,
 every event slot, count, overflow, every state leaf and the ring.  K2 (band power) sums its FP32 product in another order
 than the twin's ``torch.matmul``: dB levels agree to the JAX package's own
-kernel tolerances, 2e-3 dB (band, noise) and 4e-3 dB (delta).  The build
-tests run anywhere: they stand in a fake ``nvcc``.
+kernel tolerances, 2e-3 dB (band, noise) and 4e-3 dB (delta).  On a
+virtual 2 x 4 mesh of the card, the sharded streaming machine launches K3
+once per mesh position, bit-equal to the twin on the gathered series.  The
+build tests run anywhere: they stand in a fake ``nvcc``.
 """
 
 import os
@@ -405,6 +407,51 @@ def test_stream_fused_equals_scan_on_card(cuda):
             assert_bits_equal(a, b, "state / events")
     assert_bits_equal(out_f[2], out_s[2], "thresholds")
     assert int(out_f[1].count.sum()) > 64
+
+
+def seam_audio(seconds=64.0, fs=4000, seed=13):
+    """2 channels at 4 kHz, a 1000 Hz burst straddling the 16 s seam of a
+    4-shard time axis on channel 0, one near the 32 s seam on channel 1."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(fs * seconds)) / fs
+    x = rng.standard_normal((2, t.size)).astype(np.float32) * 0.05
+    for c, (s0, dur) in enumerate([(15.5, 1.5), (31.4, 1.2)]):
+        m = (t >= s0) & (t < s0 + dur)
+        x[c, m] += 0.6 * np.sin(2 * np.pi * 1000.0 * t[m]).astype(np.float32)
+    return torch.from_numpy(x)
+
+
+@pytest.mark.cuda
+def test_sharded_fused_launches_k3_per_mesh_position(cuda):
+    """On a virtual 2 x 4 mesh of the card, ``impl="fused"`` launches K3
+    once per mesh position on that position's station group, each launch
+    bit-equal to the twin on the gathered series, and the events equal the
+    same call's on a virtual 2 x 4 mesh of the CPU (the twin)."""
+    from meteor_scatter_tpu_torch.config import DetectionConfig
+    from meteor_scatter_tpu_torch.parallel import make_mesh, sharded_stream_process
+
+    cfg = DetectionConfig(signal_freq=1000.0, detection_db_over_noise_mean_min=1.0,
+                          detection_dur_min_sec=0.5)
+    x = seam_audio()
+    before = tsk.launches
+    st, ev, dg = sharded_stream_process(cfg, None, x.to(cuda), 4000,
+                                        make_mesh(2, 4, ["cuda:0"] * 8), front="bins",
+                                        impl="fused")
+    torch.cuda.synchronize()
+    assert tsk.launches == before + 8
+    scfg = tst.StreamConfig.from_config(cfg)
+    on = dg["over_noise"]
+    st_s, ev_s, thr_s = tst.stream_scan(scfg, tst.stream_init_batch(scfg, 2, cuda), on,
+                                        torch.zeros_like(on))
+    for a, b in zip((*st, *ev, dg["threshold"]), (*st_s, *ev_s, thr_s)):
+        assert_bits_equal(a, b, "sharded K3 against the twin")
+    before = tsk.launches
+    _, ev_c, _ = sharded_stream_process(cfg, None, x, 4000, make_mesh(2, 4, ["cpu"] * 8),
+                                        front="bins", impl="fused")
+    assert tsk.launches == before  # the twin on the CPU
+    assert int(ev.count.min()) >= 1
+    for f in ("count", "time_start", "time_stop", "overflow"):
+        assert torch.equal(getattr(ev, f).cpu(), getattr(ev_c, f)), f
 
 
 @pytest.mark.cuda
