@@ -59,7 +59,20 @@ non-zero (there is no CPU fallback):
    first hour of the live day (one PNG per event whose ±3 s window lies in
    one 60 s feed: the ring holds the last feed), with the time per export. Their K1 / K3 launches are printed
    on the phase's line and not added to the kernel records' counts.
-11. e2e_monitor — the segment monitor: the JAX package's image benchmark
+11. e2e_episode  — the episode-jump solvers (``impl="jump"`` / ``"hop"``,
+   plain PyTorch) against K3: the 64 stations' series through
+   ``stream_scan_jump`` / ``stream_scan_jump_batch`` against one K3 launch
+   on the same series (thresholds, counts, start and stop times and the
+   exact state leaves bit for bit, the other fields within the JAX tests'
+   tolerances; iterations, host syncs, ms and a profile beside K3's ms),
+   and ``stream_process`` on the audio finding the same counts; the live day's first hour through
+   ``apps.live.main --impl jump|hop|fused`` (equal event lines, ms a feed);
+   hop sharded on a 2 x 4 mesh against unsharded; ``welch_band_sums_db``
+   card against CPU in both branches; ``adaptive_thresholds_fast`` on the
+   whole batch day against K1's walk (equal events, so equal above-mask);
+   the scan, jump and hop on the CPU at the stations and live-feed shapes.  Its K1 /
+   K3 launches are printed on its line and not added to the records.
+12. e2e_monitor — the segment monitor: the JAX package's image benchmark
    fixture (8 x 30 s at 5 kHz, bursts at 8 + s and 20 s) as one batch
    through ``detect_and_cluster_bursts`` on the card in both keypoint
    modes (2 critical clusters a segment, each burst inside a cluster's
@@ -69,9 +82,10 @@ non-zero (there is no CPU fallback):
    one segment; then ``apps.monitor.main --wav`` over a synthetic 6 h day
    from 21:00 (the daily CSVs byte-equal to the port's ledger fed the
    truth on the same clock, one PNG per burst segment).
-12. e2e_sharded — the multi-device layer on virtual meshes that repeat the
+13. e2e_sharded — the multi-device layer on virtual meshes that repeat the
    card: the port's ``dryrun_multichip`` on a 2 x 4 mesh (every assertion
-   of the JAX package's); BASELINE config 5 (the stations fixture) through
+   of the JAX package's, its three streaming cases; K3 10 times, in
+   ``bins:fused``); BASELINE config 5 (the stations fixture) through
    ``sharded_stream_process(front="bins", impl="fused")`` on a 2 x 4 mesh
    (K3 once per mesh position) against the unsharded ``stream_process``,
    events equal; BASELINE config 4 (the at-spec I/Q fixture) framed per
@@ -178,6 +192,23 @@ IMAGE_NOISE, IMAGE_AMP, IMAGE_TONE_HZ = 300.0, 3000.0, 1000.0
 MONITOR_HOURS, MONITOR_START = 6, "2026-08-16T21:00:00"
 # The exports' context after an event (SpecExportConfig.time_after_meteor_sec)
 SPEC_AFTER_SEC = 3.0
+# The episode-jump solvers against K3: the JAX package's split of fields
+# (tests/test_streaming_jump.py): exact leaves bit for bit, the events'
+# other fields within the JAX tests' tolerances (jump 1e-5, hop 1e-4), the
+# state sums within 1e-5 (as rtol = atol there: relative to 1 + |value|).
+EPISODE_EXACT_STATE = ("state", "block_idx", "ring", "locked_threshold", "locked_until_block",
+                       "track_start_sec", "track_start_block", "tr_count", "init_count")
+EPISODE_CLOSE_STATE = ("tr_sum", "tr_sumsq", "tr_min", "tr_max", "init_sum",
+                       "psd_db_mean_from_init")
+EPISODE_TOL = {"jump": 1e-5, "hop": 1e-4}
+EPISODE_STATE_TOL = 1e-5
+# welch_band_sums_db, card against CPU: float32 products summed in other
+# orders by cuBLAS and the CPU's BLAS (3.8e-6 dB read on the H100); a TF32
+# or lower-precision product would miss by far more.  8 stations.
+EPISODE_WELCH_DB_TOL = 1e-4
+EPISODE_WELCH_STATIONS = 8
+EPISODE_K1_CAP = 4096  # events of the batch day (detect_adaptive's default cap)
+EPISODE_CPU_REPS = 3  # CPU walls of the scan / jump / hop, median of 3
 LIVE_FEED_SEC = 60.0  # apps.live's chunk, and its waterfall ring (max_range_sec)
 # Card peaks for the bound (H100 SXM data sheet): HBM bytes/s, FP32 FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
@@ -262,6 +293,14 @@ def bound(bytes_moved: float, flops: float) -> dict:
     t_ops = flops / FP32_FLOP_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": bytes_moved, "flops": flops}
+
+
+def k3_bound(C: int, n: int, w: int, cap: int) -> dict:
+    """K3's bound for C channels of n blocks: in, on, pm and the state (14
+    leaves and the ring of w); out, the thresholds, the event buffers,
+    count, overflow and the state; 2·w operations a block for the window
+    sums."""
+    return bound(3 * 4 * n * C + 7 * 4 * C * cap + 5 * C + 2 * (14 * 4 + 4 * w) * C, 2 * w * n * C)
 
 
 def cuda_ms(fn, warmup: int = 2, reps: int = 7) -> float:
@@ -669,10 +708,7 @@ def phase_kernel_k3() -> dict:
             "max_abs_err": max(float(e.max()) if e.numel() else 0.0 for e in finite),
             "events": int(want[1][7].sum()), "overflow": int(want[1][8].sum()),
             "nan_thresholds": int(torch.isnan(want[2]).sum()),
-            # in: on, pm, the state (14 leaves + the ring); out: thresholds,
-            # the event buffers, count, overflow, the state; 2*w adds a block
-            **bound(3 * 4 * n * C + 7 * 4 * C * cap + 5 * C + 2 * (14 * 4 + 4 * w) * C,
-                    2 * w * n * C),
+            **k3_bound(C, n, w, cap),
         }
         if label in ("stations", "live_feed"):
             case["ms"] = kernel_device_ms(lambda: sk._launch(*args, **kw), "stream_solve_kernel")
@@ -1253,6 +1289,8 @@ def phase_e2e_frontend_iq(iq: dict) -> dict:
         "pipeline_with_upload_ms": ms_upload, "complex_samples_per_s_with_upload": n / (ms_upload / 1e3),
         "bank_gemm_ms": gemm_ms, "bank_gemm_bound": gemm,
         "bank_gemm_shape": [rows_m, q, cols],
+        "k3_shape": [int(on.shape[1]), len(freqs)],
+        "k3_bound": k3_bound(len(freqs), int(on.shape[1]), scfg.avg_win, scfg.cap),
         "profiled_calls": reps, "profiled_device_ms": sum(r[1] for r in rows),
         "profiled_device_top": [[k[:160], round(ms_, 4), c] for k, ms_, c in rows[:12]],
     }
@@ -1515,14 +1553,14 @@ def phase_e2e_spec_export(tmp: str) -> dict:
 
 
 def max_dev(a, b) -> float:
-    """The largest |a - b| where both are numbers (NaN where both are NaN
-    counts as equal)."""
+    """The largest |a - b| where both are numbers (NaN where both are NaN,
+    and equal infinities, count as equal)."""
     import torch
 
     both_nan = torch.isnan(a) & torch.isnan(b)
     if bool((torch.isnan(a) != torch.isnan(b)).any()):
         return math.inf
-    return float(torch.where(both_nan, 0.0, (a - b).abs()).max())
+    return float(torch.where(both_nan | (a == b), 0.0, (a - b).abs()).max())
 
 
 def phase_e2e_sharded(tmp: str, iq: dict) -> dict:
@@ -1567,6 +1605,9 @@ def phase_e2e_sharded(tmp: str, iq: dict) -> dict:
         line = dryrun_multichip(8, devices=[card] * 8)
     out["dryrun"] = {"mesh": [2, 4], "wall_s": time.perf_counter() - t0, "line": line,
                      "k3_launches": sk.launches}
+    # K3 runs in bins:fused only (8 positions + 2 unsharded channels); bins:hop runs none
+    if sk.launches != 10 or "bins:hop" not in line:
+        raise AssertionError(f"dryrun: K3 launched {sk.launches} times (expected 10): {line}")
 
     # --- (b) BASELINE config 5: 64 stations, 2 x 4 mesh, bins front, K3 ---
     cfg = live_config()
@@ -1696,6 +1737,256 @@ def phase_e2e_sharded(tmp: str, iq: dict) -> dict:
     return out
 
 
+def cpu_solver_ms(scfg, on, pm) -> dict:
+    """Median wall ms of the scan, jump and hop on CPU copies of the levels
+    ``on`` / ``pm`` (one series ``(n,)`` or a batch ``(C, n)``) from a
+    fresh state, each checked against the scan: thresholds and counts bit
+    for bit."""
+    import torch
+
+    from meteor_scatter_tpu_torch.models import streaming as st
+
+    on, pm = on.cpu(), pm.cpu()
+    st0 = (st.stream_init(scfg, "cpu") if on.dim() == 1
+           else st.stream_init_batch(scfg, on.shape[0], "cpu"))
+    out = {"shape": list(on.shape), "threads": torch.get_num_threads()}
+    want = None
+    for name, solve in (("scan", st.stream_scan), ("jump", st.stream_scan_jump),
+                        ("hop", st.stream_scan_jump_batch)):
+        times = []
+        for _ in range(EPISODE_CPU_REPS):
+            t0 = time.perf_counter()
+            got = solve(scfg, st0, on, pm)
+            times.append((time.perf_counter() - t0) * 1e3)
+        want = want or got
+        if not (bits_equal(got[2], want[2]) and bits_equal(got[1].count, want[1].count)):
+            raise AssertionError(f"CPU {name} on {list(on.shape)}: other thresholds or counts")
+        out[f"{name}_ms"] = statistics.median(times)
+    out["events"] = int(want[1].count.sum())
+    return out
+
+
+def phase_e2e_episode(tmp: str) -> dict:
+    """The episode-jump solvers (``impl="jump"`` / ``"hop"``, plain PyTorch)
+    on the card, with K3 as the yardstick: (a) BASELINE config 5
+    (:func:`stations_fixture`): both solvers batched over the 64 channels'
+    series against one K3 launch on the same series, and ``stream_process``
+    on the audio; (b) the first
+    hour of the live day through ``apps.live.main`` with ``--impl jump``,
+    ``hop`` and ``fused``, equal event lines; (c) the stations through
+    ``sharded_stream_process(front="bins", impl="hop")`` on a 2 x 4 mesh of
+    the card against the unsharded hop; (d) ``welch_band_sums_db`` on the
+    card against the CPU in both branches, and ``adaptive_thresholds_fast``
+    on the whole batch day against K1's walk route; (e) the scan, jump and
+    hop on the CPU on the stations' series and the live day's first feed.  K1 and K3
+    launches here are this line's, not the kernel records'."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from meteor_scatter_tpu_torch.io.wavio import read_wav
+    from meteor_scatter_tpu_torch.models import adaptive
+    from meteor_scatter_tpu_torch.models import streaming as st
+    from meteor_scatter_tpu_torch.models.events import events_from_mask
+    from meteor_scatter_tpu_torch.ops import bandpower as bp
+    from meteor_scatter_tpu_torch.ops import welch
+    from meteor_scatter_tpu_torch.ops.kernels import adaptive_kernel as ak
+    from meteor_scatter_tpu_torch.ops.kernels import stream_kernel as sk
+    from meteor_scatter_tpu_torch.parallel.mesh import make_mesh
+    from meteor_scatter_tpu_torch.parallel.sharded import sharded_stream_process
+
+    out = {"phase": "e2e_episode", "nvidia_smi": nvidia_smi_line()}
+    cfg = live_config()
+    scfg = st.StreamConfig.from_config(cfg)
+    x, n, _ = stations_fixture()
+    st0 = st.stream_init_batch(scfg, STATIONS, DEVICE)
+
+    # --- (a) the 64 stations: jump and hop against one K3 launch ---
+    on, pm, _ = st.stream_front_headless(cfg, x, LIVE_FS)
+    zero_launch_counts()
+    k3 = st.stream_scan_fused_batch(scfg, st0, on, pm)
+    torch.cuda.synchronize()
+    if sk.launches != 1:
+        raise AssertionError(f"episode: K3 launched {sk.launches} times, expected 1")
+    out["k3_yardstick_launches"] = sk.launches
+    out["k3_call_ms"] = cuda_ms(lambda: st.stream_scan_fused_batch(scfg, st0, on, pm),
+                                warmup=2, reps=5)
+    valid = torch.arange(scfg.cap, device=DEVICE) < k3[1].count[:, None]
+
+    def events_in(ev, f):  # an event field, zero past each channel's count
+        return torch.where(valid, getattr(ev, f), 0.0)
+
+    solvers = {"jump": st.stream_scan_jump,
+               "hop": lambda *a: st.stream_scan_jump_batch(*a, with_diag=True)}
+    for impl, solve in solvers.items():
+        zero_launch_counts()
+        st.iterations = st.syncs = 0
+        got = solve(scfg, st0, on, pm)
+        torch.cuda.synchronize()
+        counts = {"iterations": st.iterations, "syncs": st.syncs, "k3_launches": sk.launches}
+        st_e, ev_e, thr_e = got[:3]
+        on_card = thr_e.device.type == ev_e.count.device.type == torch.device(DEVICE).type
+        if counts["iterations"] == 0 or sk.launches != 0 or not on_card:
+            raise AssertionError(f"episode {impl}: {counts}, on {thr_e.device}")
+        exact = {"count": bits_equal(ev_e.count, k3[1].count),
+                 "overflow": bits_equal(ev_e.overflow, k3[1].overflow),
+                 "thresholds": bits_equal(thr_e, k3[2])}
+        exact.update({f: bits_equal(events_in(ev_e, f), events_in(k3[1], f))
+                      for f in ("time_start", "time_stop")})
+        exact.update({f"state.{f}": bits_equal(getattr(st_e, f), getattr(k3[0], f))
+                      for f in EPISODE_EXACT_STATE})
+        tol = EPISODE_TOL[impl]
+        pairs = {f: (events_in(ev_e, f), events_in(k3[1], f), tol)
+                 for f in ("duration", "db_min", "db_max", "db_mean", "db_std")}
+        pairs.update({f"state.{f}": (getattr(st_e, f), getattr(k3[0], f), EPISODE_STATE_TOL)
+                      for f in EPISODE_CLOSE_STATE})
+        dev = {f: max_dev(a, b) for f, (a, b, _) in pairs.items()}
+        wide = [f for f, (a, b, t) in pairs.items()
+                if not bool(torch.isclose(a, b, rtol=t, atol=t, equal_nan=True).all())]
+        unequal = [f for f, ok in exact.items() if not ok]
+        if unequal or wide or int(ev_e.count.sum()) < STATIONS:
+            raise AssertionError(f"episode {impl} against K3: unequal {unequal}, beyond "
+                                 f"tolerance {wide} ({dev}), {int(ev_e.count.sum())} events")
+        # the entry point on the audio: the same events as the solver's
+        _, ev_p, dg_p = st.stream_process(cfg, st0, x, LIVE_FS, front="bins", impl=impl)
+        if not (torch.equal(ev_p.count, ev_e.count) and ("thr_degraded" in dg_p) == (impl == "hop")):
+            raise AssertionError(f"episode {impl}: stream_process found other events")
+        out[impl] = {
+            **counts, "events": int(ev_e.count.sum()), "exact_equal_k3": True,
+            "max_abs_dev": dev, "tol": tol,
+            "thr_degraded": bool(got[3]["thr_degraded"].any()) if impl == "hop" else None,
+            "solve_ms": cuda_ms(lambda: solve(scfg, st0, on, pm), warmup=2, reps=5),
+            "process_ms": cuda_ms(lambda: st.stream_process(cfg, st0, x, LIVE_FS, front="bins",
+                                                            impl=impl), warmup=1, reps=5),
+        }
+        # one solve under the profiler: the device's busy time and records
+        # (kernels and copies; the tracer may drop some) against the call
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(TRACER_SETTLE_S)
+            t0 = time.perf_counter()
+            solve(scfg, st0, on, pm)
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+        rows = device_rows(prof)
+        out[impl].update({"profiled_wall_ms": prof_ms,
+                          "profiled_device_busy_ms": sum(r[1] for r in rows),
+                          "profiled_device_records": sum(r[2] for r in rows),
+                          "profiled_device_top": [[k, round(ms, 4), c] for k, ms, c in rows[:5]]})
+    # the base-threshold prologue both solvers share with K3's twin, alone
+    out["prologue_ms"] = cuda_ms(lambda: sk.ring_base_thresholds(
+        st0.ring, st0.block_idx, on, scfg.avg_win, scfg.k_std), warmup=2, reps=5)
+    # --- (e) the same series on the CPU: scan, jump and hop ---
+    out["cpu_stations"] = cpu_solver_ms(scfg, on, pm)
+
+    # --- (c) sharded hop on 2 x 4 positions of the card against the unsharded hop ---
+    card = f"{DEVICE}:{torch.cuda.current_device()}"
+    mesh = make_mesh(2, 4, [card] * 8)
+    zero_launch_counts()
+    st.iterations = st.syncs = 0
+    st_s, ev_s, dg_s = sharded_stream_process(cfg, st0, x, LIVE_FS, mesh, front="bins", impl="hop")
+    torch.cuda.synchronize()
+    sh_counts = {"iterations": st.iterations, "syncs": st.syncs, "k3_launches": sk.launches}
+    st_u, ev_u, dg_u = st.stream_process(cfg, st0, x, LIVE_FS, front="bins", impl="hop")
+    twin = st.stream_scan_jump_batch(scfg, st0, dg_s["over_noise"], torch.zeros_like(dg_s["over_noise"]))
+    same = {f: bits_equal(getattr(ev_s, f), getattr(ev_u, f))
+            for f in ("count", "overflow", "time_start", "time_stop")}
+    same["thresholds"] = bits_equal(dg_s["threshold"], dg_u["threshold"])
+    same["thresholds_hop_on_gathered"] = bits_equal(dg_s["threshold"], twin[2])
+    if not all(same.values()) or sh_counts["iterations"] == 0 or sk.launches:
+        raise AssertionError(f"episode sharded hop against unsharded: {same}, {sh_counts}")
+    out["sharded_hop"] = {"mesh": [2, 4], **sh_counts, "events": int(ev_s.count.sum()),
+                          "equal": same,
+                          "over_noise_max_abs_dev": max_dev(dg_s["over_noise"], dg_u["over_noise"]),
+                          "sharded_ms": cuda_ms(lambda: sharded_stream_process(
+                              cfg, st0, x, LIVE_FS, mesh, front="bins", impl="hop"), warmup=1, reps=5)}
+
+    # --- (d) welch_band_sums_db, card against CPU, both branches ---
+    bands = (cfg.signal_band, cfg.noise_band_1, cfg.noise_band_2)
+    xw = x[:EPISODE_WELCH_STATIONS]
+    out["welch_band_sums_db"] = {"shape": list(xw.shape), "tol_db": EPISODE_WELCH_DB_TOL}
+    for noverlap in (128, 100):  # hop 128 divides nperseg 256 (group sums); 156 does not
+        P, slices = welch.welch_band_matrix(LIVE_FS, cfg.n_fft, 256, bands)
+        Pc = torch.from_numpy(P).to(DEVICE)
+        got = welch.welch_band_sums_db(xw, 256, Pc, slices, noverlap=noverlap)
+        want = welch.welch_band_sums_db(xw.cpu(), 256, torch.from_numpy(P), slices, noverlap=noverlap)
+        err = max(max_dev(g.cpu(), w) for g, w in zip(got, want))
+        if not (err <= EPISODE_WELCH_DB_TOL and got[0].device.type == torch.device(DEVICE).type):
+            raise AssertionError(f"welch_band_sums_db noverlap {noverlap}: card vs CPU {err} dB")
+        out["welch_band_sums_db"][f"noverlap_{noverlap}"] = {
+            "max_abs_err_db": err,
+            "ms": cuda_ms(lambda: welch.welch_band_sums_db(xw, 256, Pc, slices, noverlap=noverlap),
+                          warmup=1, reps=5)}
+    del x, xw, on, pm, dg_p, dg_s, dg_u, twin
+    torch.cuda.empty_cache()
+
+    # --- (d) adaptive_thresholds_fast on the whole batch day against K1 ---
+    fs_a, pcm = read_wav(os.path.join(tmp, ANALYZE_WAV), mono=True)
+    block = int(fs_a * BLOCK_SEC)
+    audio = torch.from_numpy(pcm).to(DEVICE).to(torch.float32)
+    del pcm
+    delta = bp.delta_power_db(audio, fs_a, 1024, block, (993.0, 1013.0), (690.0, 710.0))[2]
+    del audio
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    thr_f, above_f = adaptive.adaptive_thresholds_fast(delta, **SOLVER)
+    torch.cuda.synchronize()
+    fast_s = time.perf_counter() - t0
+    ev_f = events_from_mask(above_f, delta, EPISODE_K1_CAP)
+    zero_launch_counts()
+    ev_k, thr_k = adaptive._detect_adaptive_fused(delta, EPISODE_K1_CAP, **SOLVER)
+    torch.cuda.synchronize()
+    walks = ak.walk_launches
+    want_walks = math.ceil(delta.shape[0] / (ak.MAX_FUSED_BLOCKS - SOLVER["window_blocks"]))
+    thr_err = max_dev(thr_f, thr_k)
+    # runs of above are the events: with no overflow, equal events are an equal mask
+    same = {f: bool(torch.equal(getattr(ev_f, f), getattr(ev_k, f)))
+            for f in ("start", "stop", "count", "overflow")}
+    if not (all(same.values()) and not bool(ev_f.overflow) and int(ev_f.count) > 0
+            and above_f.device.type == torch.device(DEVICE).type
+            and thr_err <= THR_TOL_DB and walks == want_walks):
+        raise AssertionError(f"adaptive_thresholds_fast against K1 on the day: {same}, "
+                             f"thresholds {thr_err} dB, {walks} walk launches of {want_walks}")
+    _, _, rounds = adaptive._fixpoint(delta, **SOLVER)
+    out["adaptive_thresholds_fast"] = {
+        "blocks": int(delta.shape[0]), "above_blocks": int(above_f.sum()),
+        "events": int(ev_f.count), "events_equal_k1": True, "fixpoint_rounds": rounds,
+        "threshold_max_abs_dev_db": thr_err, "tol_db": THR_TOL_DB, "k1_walk_launches": walks,
+        "wall_s": fast_s, "ms": cuda_ms(lambda: adaptive.adaptive_thresholds_fast(delta, **SOLVER),
+                                        warmup=1, reps=5),
+        "k1_ms": cuda_ms(lambda: adaptive._detect_adaptive_fused(delta, EPISODE_K1_CAP, **SOLVER),
+                         warmup=1, reps=5),
+    }
+    del delta, thr_f, above_f, thr_k
+
+    # --- (b) the live CLI on the first hour: jump, hop and fused print the same lines ---
+    wav = os.path.join(tmp, "live_4khz_24h.wav")
+    # --- (e) the first feed's series on the CPU: scan, jump and hop ---
+    fs_l, pcm = read_wav(wav, mono=True)
+    feed = torch.from_numpy(pcm[: int(LIVE_FEED_SEC * fs_l)]).to(DEVICE).to(torch.float32)
+    del pcm
+    on_l, pm_l, _ = st.stream_front_headless(cfg, feed, fs_l)
+    out["cpu_live_feed"] = cpu_solver_ms(scfg, on_l, pm_l)
+    del feed, on_l, pm_l
+    lines, feeds = {}, math.ceil(3600 / LIVE_FEED_SEC)
+    out["live_hour"] = {"feeds": feeds}
+    for impl in ("fused", "jump", "hop"):
+        st.iterations = st.syncs = 0
+        events, text, wall, launches, _ = run_live_main(
+            [wav, "--device", DEVICE, "--stop-sec", "3600", "--impl", impl, *LIVE_ARGS])
+        lines[impl] = [ln for ln in text.splitlines() if ln.startswith("Detected Meteor:")]
+        want_k3 = feeds if impl == "fused" else 0
+        if launches != want_k3 or (impl != "fused" and st.iterations == 0) or not lines[impl]:
+            raise AssertionError(f"live --impl {impl}: {launches} K3 launches, "
+                                 f"{st.iterations} iterations, {len(lines[impl])} events")
+        out["live_hour"][impl] = {"events": len(lines[impl]), "k3_launches": launches,
+                                  "iterations": st.iterations, "syncs": st.syncs,
+                                  "wall_s": wall, "ms_per_feed": wall / feeds * 1e3}
+    if not lines["jump"] == lines["hop"] == lines["fused"]:
+        raise AssertionError("live --impl jump / hop / fused print different event lines")
+    out["live_hour"]["lines_equal"] = True
+    emit(out)
+    return out
+
+
 def port_modules_loaded_from_jax() -> list:
     """JAX or JAX-package modules present in this process."""
     return [k for k, v in sys.modules.items() if v is not None and (
@@ -1727,6 +2018,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         e2e_live = phase_e2e_live(tmp)
         phase_e2e_spec_export(tmp)
+        phase_e2e_episode(tmp)
     e2e_st = phase_e2e_stations()
     phase_e2e_frontend()
     iq = frontend_iq_fixture()

@@ -6,7 +6,10 @@ Audio is consumed in chunks (bounded memory, like the reference's block
 loop); each chunk's band levels are computed as one batched tensor program
 on the chosen device and the block-rate solve (rolling threshold, 3-state
 decision machine, event compaction) runs over the chunk's blocks — on a GPU
-as one launch of the hand-written CUDA kernel ``csrc/stream_machine.cu``.
+by default as one launch of the hand-written CUDA kernel
+``csrc/stream_machine.cu``; ``--impl scan|jump|hop`` select the plain
+PyTorch solvers (the block machine, or the episode-jump solvers of
+:mod:`meteor_scatter_tpu_torch.models.streaming`).
 
 Usage::
 
@@ -18,8 +21,7 @@ Per-event waterfall PNGs (``--spec-export-dir``) are exported once the ±3 s
 context window fits the waterfall ring, with the auto-gained dB range from
 the initialization phase (`processor.py:294-343`).
 
-Not yet ported: ``--ui`` (the live matplotlib dashboard) and the
-episode-jump solvers ``--impl jump|hop``; both raise.
+Not yet ported: ``--ui`` (the live matplotlib dashboard); it raises.
 """
 
 from __future__ import annotations
@@ -80,7 +82,8 @@ class LiveSession:
         # opt-in throughput mode (models/streaming.py stream_front_headless)
         self.headless = headless and not self.spec.output_dir
         # block-rate solver: "auto" (fused on a GPU, scan on the CPU, see
-        # models/streaming.py resolve_stream_auto), "scan" or "fused"
+        # models/streaming.py resolve_stream_auto), "scan", "jump", "hop" or
+        # "fused"
         self.impl = impl
         self.state = stream_init(StreamConfig.from_config(cfg), self.device)
         self.block_samples = int(round(cfg.proc_block_sec * fs))
@@ -221,17 +224,16 @@ def main(argv=None) -> int:
                         "within f32 noise of the Welch path")
     p.add_argument("--impl", choices=("auto", "scan", "jump", "hop", "fused"), default="auto",
                    help="block-rate solver: 'scan' (the plain PyTorch machine), "
+                        "'jump' / 'hop' (the episode-jump solvers: event boundaries "
+                        "bit-exact vs scan, dB statistics to f32 summation order), "
                         "'fused' (the CUDA kernel on a GPU, bit-exact vs scan), or "
-                        "'auto' (fused on a GPU, scan on the CPU); 'jump' and 'hop' "
-                        "are not yet ported and raise")
+                        "'auto' (fused on a GPU, scan on the CPU)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
     if args.headless and (args.ui or args.spec_export_dir):
         p.error("--headless excludes --ui and --spec-export-dir (both need the PSD waterfall)")
     if args.ui:
         raise NotImplementedError(f"--ui (the live dashboard) {NOT_PORTED}")
-    if args.impl in ("jump", "hop"):
-        raise NotImplementedError(f"--impl {args.impl} (episode-jump solver) {NOT_PORTED}")
 
     cfg = DetectionConfig(
         proc_block_sec=args.block_sec,

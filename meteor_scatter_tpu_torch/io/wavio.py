@@ -1,6 +1,7 @@
 """WAV read/write, pure stdlib + numpy.
 
-A copy of `meteor_scatter_tpu/io/wavio.py` (``read_wav``, ``write_wav``):
+A copy of `meteor_scatter_tpu/io/wavio.py` (``read_wav``, ``write_wav``,
+``stream_wav_blocks``):
 importing that module runs `meteor_scatter_tpu/io/__init__.py`, which loads
 JAX through `io/events_csv.py`, and the port must import without JAX.  One
 difference: the data chunk is read into a ``bytearray``, so the returned
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import struct
 import wave
-from typing import Tuple
+from typing import Iterator, Tuple
 
 import numpy as np
 
@@ -84,3 +85,12 @@ def write_wav(path: str, fs: int, data: np.ndarray) -> None:
         wf.setsampwidth(2)
         wf.setframerate(fs)
         wf.writeframes(data.tobytes())
+
+
+def stream_wav_blocks(path: str, block_samples: int, mono: bool = True) -> Iterator[np.ndarray]:
+    """Yield consecutive full blocks of ``block_samples`` samples (a trailing
+    partial block is dropped), as the reference package's live input."""
+    fs, data = read_wav(path, mono=mono)
+    n = (len(data) // block_samples) * block_samples
+    for i in range(0, n, block_samples):
+        yield data[i : i + block_samples]

@@ -11,7 +11,7 @@ Counterpart of `meteor_scatter_tpu/models/adaptive.py` (reference:
 * any above-threshold block sets
   ``freeze_until = max(i + freeze_after, max(0, i - freeze_before))``.
 
-Two solvers, both giving the same above mask:
+Two solvers of :func:`detect_adaptive`, both giving the same above mask:
 
 * ``"parallel"`` — :func:`adaptive_thresholds_parallel`, the fixpoint
   iteration in plain PyTorch, then :func:`events_from_mask`;
@@ -22,7 +22,9 @@ Two solvers, both giving the same above mask:
 
 The sequential recurrence itself, :func:`adaptive_thresholds` (a loop over
 blocks with a carry), serves chunked calls and the time-sharded warm start
-(:func:`meteor_scatter_tpu_torch.parallel.sharded.sharded_detect_adaptive`).
+(:func:`meteor_scatter_tpu_torch.parallel.sharded.sharded_detect_adaptive`);
+:func:`adaptive_thresholds_fast` keeps the reference's name for the
+prefix-sum formulation and is the fixpoint.
 """
 
 from __future__ import annotations
@@ -129,6 +131,32 @@ def adaptive_thresholds(
     if squeeze:
         return thresholds[0], above[0], tuple(a[0] for a in carry)
     return thresholds, above, carry
+
+
+def adaptive_thresholds_fast(
+    delta: torch.Tensor,
+    threshold_std_factor: float,
+    window_blocks: int,
+    freeze_blocks_before: int,
+    freeze_blocks_after: int,
+    fixed_threshold_blocks: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Same semantics as :func:`adaptive_thresholds` (full-series case) for
+    one series ``(B,)``: every block's rolling window mean/std precomputed
+    from prefix sums, then the freeze recurrence over them.
+
+    The reference runs that recurrence as a two-scalar ``lax.scan``; here it
+    is :func:`adaptive_thresholds_parallel`, whose fixpoint reads the same
+    window statistics and holds, at every block, the windowed threshold of
+    the last updatable block (else the fixed one), as the scan's carry does:
+    the same thresholds and above mask, in a few rounds instead of B steps.
+
+    Returns (thresholds, above), each ``(B,)``.
+    """
+    return adaptive_thresholds_parallel(
+        delta, threshold_std_factor, window_blocks, freeze_blocks_before,
+        freeze_blocks_after, fixed_threshold_blocks,
+    )
 
 
 def adaptive_thresholds_parallel(

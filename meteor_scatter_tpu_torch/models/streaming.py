@@ -32,9 +32,14 @@ block machine, event compaction, final ring) as the plain PyTorch twin of
 K3 (:func:`meteor_scatter_tpu_torch.ops.kernels.stream_kernel.stream_solve_plain`)
 on any device; :func:`stream_scan_fused_batch` runs the same solve on the
 series' device, which is one launch of the hand-written CUDA kernel K3 on
-a GPU.  The two are bit-exact with each other on one device.  Every
-state and series is batched over a leading channel axis where the
-reference uses ``vmap``; an unbatched call is one channel.
+a GPU.  The two are bit-exact with each other on one device.  The
+episode-jump solvers :func:`stream_scan_jump` and
+:func:`stream_scan_jump_batch` (plain PyTorch on any device) jump from
+decision to decision instead of walking every block; they give the scan's
+thresholds, transitions and event boundaries bit for bit and its dB
+statistics to float32 summation order.  Every state and series is batched
+over a leading channel axis where the reference uses ``vmap``; an
+unbatched call is one channel.
 """
 
 from __future__ import annotations
@@ -60,7 +65,12 @@ from meteor_scatter_tpu_torch.ops.welch import (
 # State machine encoding
 INIT, DETECT, TRACK = 0, 1, 2
 
-NOT_PORTED = "is not yet ported to meteor_scatter_tpu_torch (use meteor_scatter_tpu)"
+# The episode solvers' loop tests on the host whether any channel is still
+# undecided once every SYNC_EVERY lockstep iterations (each test waits for
+# the device); iterations past a channel's end leave its carry unchanged.
+SYNC_EVERY = 4
+iterations = 0  # episode-solver lockstep iterations so far; chip_smoke.py resets and reads it
+syncs = 0  # host tests of the episode solvers' loop so far
 
 
 def lock_tail_blocks(after_wait_sec: float, block_sec: float) -> int:
@@ -442,21 +452,35 @@ def solve_params(scfg: StreamConfig) -> dict:
     )
 
 
+def _per_channel(solve: Callable, state: StreamState, over_noise, psd_db_mean) -> tuple:
+    """``solve(state, over_noise, psd_db_mean)`` of a batched solver (state
+    leaves (C, ...), series (C, n)) on a batch as it is, or on one channel
+    (1-D series, scalar state) as C = 1 with the channel axis dropped from
+    every output (named tuples, dicts and tensors)."""
+    if over_noise.dim() != 1:
+        return solve(state, over_noise, psd_db_mean)
+
+    def row(out):
+        if isinstance(out, dict):
+            return {k: v[0] for k, v in out.items()}
+        return _map(lambda a: a[0], out) if isinstance(out, tuple) else out[0]
+
+    out = solve(_map(lambda a: a.unsqueeze(0), state), over_noise[None], psd_db_mean[None])
+    return tuple(row(o) for o in out)
+
+
 def _solve(scfg: StreamConfig, state: StreamState, over_noise, psd_db_mean, solve):
     """One chunk of C channels through ``solve`` (the kernel's layout, see
     :mod:`meteor_scatter_tpu_torch.ops.kernels.stream_kernel`); an
     unbatched call (1-D series, scalar state) is C = 1.  Series that are not
     contiguous are copied first; the fronts' are, so on the main path only
     views are taken around the solve."""
-    if over_noise.dim() == 1:
-        st, ev, thr = _solve(
-            scfg, _map(lambda a: a.unsqueeze(0), state), over_noise[None], psd_db_mean[None],
-            solve,
-        )
-        return _map(lambda a: a[0], st), _map(lambda a: a[0], ev), thr[0]
-    st, ev, thr = solve(over_noise.contiguous(), psd_db_mean.contiguous(), tuple(state),
-                        **solve_params(scfg))
-    return StreamState(*st), StreamEvents(*ev), thr
+
+    def kernel_layout(st, on, pm):
+        st, ev, thr = solve(on.contiguous(), pm.contiguous(), tuple(st), **solve_params(scfg))
+        return StreamState(*st), StreamEvents(*ev), thr
+
+    return _per_channel(kernel_layout, state, over_noise, psd_db_mean)
 
 
 def stream_scan(
@@ -506,6 +530,394 @@ def stream_scan_fused(
     return _solve(scfg, state, over_noise, psd_db_mean, stream_kernel.stream_solve)
 
 
+class _Lanes(NamedTuple):
+    """Per-channel carry of the episode solvers' lockstep loop, each (C,):
+    the next undecided block ``k`` (chunk-relative; the channel is done at
+    n), the machine's state, lock and track leaves, and the event count and
+    overflow flag."""
+
+    k: torch.Tensor
+    s: torch.Tensor
+    L: torch.Tensor
+    luntil: torch.Tensor
+    tstart: torch.Tensor
+    tsblk: torch.Tensor
+    trc: torch.Tensor
+    trs: torch.Tensor
+    trss: torch.Tensor
+    trmn: torch.Tensor
+    trmx: torch.Tensor
+    e_cnt: torch.Tensor
+    e_ovf: torch.Tensor
+
+
+def _const(value: float, device) -> torch.Tensor:
+    """A float32 constant on ``device``, made by a fill kernel: a tensor
+    built from a host value would be a pageable copy, which waits for the
+    device."""
+    return torch.full((), value, dtype=torch.float32, device=device)
+
+
+def _pick(cond: torch.Tensor, a: _Lanes, b: _Lanes) -> _Lanes:
+    return _Lanes(*(torch.where(cond, x, y) for x, y in zip(a, b)))
+
+
+def _first(mask: torch.Tensor, pos: torch.Tensor, none: int) -> torch.Tensor:
+    """Per row, the position of the first true entry of ``mask`` (``pos``
+    along its last axis), or ``none`` where the row has none."""
+    return torch.where(mask, pos, none).amin(-1)
+
+
+def _at(a: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """``a[c, pos[c]]`` per channel, ``pos`` clamped into the row (a
+    position past the end, where nothing was found, reads a value that the
+    caller then does not select)."""
+    return a.gather(1, torch.clamp(pos, max=a.shape[1] - 1).to(torch.int64)[:, None])[:, 0]
+
+
+def _file(buf: torch.Tensor, slot: torch.Tensor, vals: torch.Tensor) -> None:
+    """Write ``vals`` (R, C) into ``buf`` (R, C, slots) at each channel's
+    ``slot``; the last slot is the spare one that takes dropped writes."""
+    idx = slot.to(torch.int64)[None, :, None].expand(buf.shape[0], -1, 1)
+    buf.scatter_(2, idx, vals[..., None])
+
+
+def _lockstep(step: Callable, lanes: _Lanes, n: int) -> _Lanes:
+    """Advance every channel until none has an undecided block left.  Each
+    ``step`` leaves a finished channel's carry as it is, so the host tests
+    for the end only once every :data:`SYNC_EVERY` steps."""
+    global iterations, syncs
+    while True:
+        syncs += 1
+        if not bool((lanes.k < n).any()):
+            return lanes
+        for _ in range(SYNC_EVERY):
+            lanes = step(lanes)
+        iterations += SYNC_EVERY
+
+
+def _episode_setup(scfg: StreamConfig, state: StreamState, on: torch.Tensor, pm: torch.Tensor):
+    """What both episode solvers precompute over a chunk: the rolling base
+    thresholds and the extended series (K3's prologue, so the thresholds
+    equal the scan's bit for bit), block indices, absolute block times
+    (``i·block_sec`` in float32, as the scan), the closed-form INIT prefix
+    and the loop's initial carry."""
+    C, n = on.shape
+    dev = on.device
+    base_thr, ext = stream_kernel.ring_base_thresholds(
+        state.ring, state.block_idx, on, scfg.avg_win, scfg.k_std)
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    iabs = state.block_idx[:, None] + idx
+    t_vec = iabs.to(torch.float32) * _const(scfg.block_sec, dev)
+    prefix = _init_prefix(scfg, state, pm, t_vec, idx)
+    lanes = _Lanes(
+        prefix[0], prefix[1], state.locked_threshold, state.locked_until_block,
+        state.track_start_sec, state.track_start_block, state.tr_count, state.tr_sum,
+        state.tr_sumsq, state.tr_min, state.tr_max,
+        torch.zeros(C, dtype=torch.int32, device=dev), torch.zeros(C, dtype=torch.bool, device=dev),
+    )
+    return base_thr, ext, idx, iabs, t_vec, prefix, lanes
+
+
+def _init_prefix(scfg: StreamConfig, state: StreamState, psd_db_mean, t_vec, idx):
+    """Closed-form INIT prefix shared by the episode-jump solvers
+    (processor.py:444-457): accumulate the PSD mean until
+    ``block_start_sec >= init_wait_sec``, then hand off to Detection.
+    Per channel; returns (k0, s0, isum, icnt, pinit, init_sel)."""
+    n = t_vec.shape[1]
+    is_init = state.state == INIT
+    t_ge = t_vec >= _const(scfg.init_wait_sec, t_vec.device)
+    k_switch = _first(t_ge, idx, n)
+    any_switch = k_switch < n
+    init_hi = torch.where(any_switch, k_switch, n - 1)  # inclusive
+    init_sel = is_init[:, None] & (idx <= init_hi[:, None])
+    icnt = state.init_count + init_sel.sum(-1, dtype=torch.int32)
+    isum = state.init_sum + torch.where(init_sel, psd_db_mean, 0.0).sum(-1)
+    pinit = torch.where(is_init & any_switch, isum / torch.clamp(icnt, min=1).to(isum.dtype),
+                        state.psd_db_mean_from_init)
+    k0 = torch.where(is_init, torch.where(any_switch, k_switch + 1, n), 0)
+    s0 = torch.where(is_init, torch.where(any_switch, DETECT, INIT).to(torch.int32), state.state)
+    return k0, s0, isum, icnt, pinit, init_sel
+
+
+def _track_close(scfg, lanes: _Lanes, span: torch.Tensor, vals: torch.Tensor, t_leave, leave_blk,
+                 ends: torch.Tensor, events: torch.Tensor):
+    """A tracking step's statistics over ``span`` (a mask over ``vals``,
+    both (C, m)) added to the running ones, and the event filed where the
+    track ends (``ends``) and is accepted.  Returns (trc, trs, trss, trmn,
+    trmx, emit)."""
+    trc = lanes.trc + span.sum(-1, dtype=torch.int32)
+    trs = lanes.trs + torch.where(span, vals, 0.0).sum(-1)
+    trss = lanes.trss + torch.where(span, vals * vals, 0.0).sum(-1)
+    trmn = torch.minimum(lanes.trmn, torch.where(span, vals, math.inf).amin(-1))
+    trmx = torch.maximum(lanes.trmx, torch.where(span, vals, -math.inf).amax(-1))
+    h_cnt = torch.clamp(trc, min=1).to(trs.dtype)
+    h_mean = trs / h_cnt
+    h_std = torch.sqrt(torch.clamp(trss / h_cnt - h_mean * h_mean, min=0.0))
+    min_mean = _const(scfg.min_mean_db, trs.device)
+    emit = ends & (h_mean >= min_mean) & (
+        leave_blk - lanes.tsblk >= min_duration_blocks(scfg.min_dur_sec, scfg.block_sec))
+    _file(events, torch.where(emit & (lanes.e_cnt < scfg.cap), lanes.e_cnt, scfg.cap),
+          torch.stack([lanes.tstart, t_leave, t_leave - lanes.tstart, trmn, trmx, h_mean, h_std]))
+    return trc, trs, trss, trmn, trmx, emit
+
+
+def _episode_result(scfg, state, ext, n, prefix, lanes: _Lanes, events, thr):
+    """The solvers' (new_state, events, thresholds) from the loop's carry."""
+    isum, icnt, pinit = prefix[2:5]
+    i_end = state.block_idx + n
+    new_state = StreamState(
+        state=lanes.s, block_idx=i_end,
+        ring=stream_kernel.final_ring(ext, state.block_idx, i_end, scfg.avg_win).to(state.ring.dtype),
+        locked_threshold=lanes.L, locked_until_block=lanes.luntil,
+        track_start_sec=lanes.tstart, track_start_block=lanes.tsblk,
+        tr_count=lanes.trc, tr_sum=lanes.trs, tr_sumsq=lanes.trss, tr_min=lanes.trmn,
+        tr_max=lanes.trmx, init_sum=isum, init_count=icnt, psd_db_mean_from_init=pinit,
+    )
+    ev = StreamEvents(*events[:, :, : scfg.cap].unbind(0), count=lanes.e_cnt, overflow=lanes.e_ovf)
+    return new_state, ev, thr
+
+
+def _jump(scfg: StreamConfig, state: StreamState, on: torch.Tensor, pm: torch.Tensor):
+    C, n = on.shape
+    lock_tail = lock_tail_blocks(scfg.after_wait_sec, scfg.block_sec)
+    base_thr, ext, idx, iabs, t_vec, prefix, lanes = _episode_setup(scfg, state, on, pm)
+    thr_out = torch.where(prefix[5], base_thr, 0.0)
+    events = torch.zeros((7, C, scfg.cap + 1), dtype=on.dtype, device=on.device)
+
+    def step(c: _Lanes) -> _Lanes:
+        nonlocal thr_out
+        active = c.k < n
+        is_det = c.s == DETECT
+        from_k = idx >= c.k[:, None]
+        # Detection: the first block from k above its threshold, which is
+        # the locked value inside the lock window
+        thr_vec = torch.where(iabs <= c.luntil[:, None], c.L[:, None], base_thr)
+        i_star = _first(from_k & (on > thr_vec), idx, n)
+        d_has = i_star < n
+        d_sel = from_k & (idx <= torch.where(d_has, i_star, n - 1)[:, None])
+        det = c._replace(
+            k=torch.where(d_has, i_star + 1, n),
+            s=torch.where(d_has, TRACK, DETECT).to(torch.int32),
+            L=torch.where(d_has, _at(thr_vec, i_star), c.L),
+            tstart=torch.where(d_has, _at(t_vec, i_star), c.tstart),
+            tsblk=torch.where(d_has, _at(iabs, i_star), c.tsblk),
+            trc=torch.where(d_has, 0, c.trc),
+            trs=torch.where(d_has, 0.0, c.trs),
+            trss=torch.where(d_has, 0.0, c.trss),
+            trmn=torch.where(d_has, math.inf, c.trmn),
+            trmx=torch.where(d_has, -math.inf, c.trmx),
+        )
+        # Tracking: the first block from k below the locked value ends the
+        # track; the span up to it, that block included, feeds the statistics
+        j = _first(from_k & (on < c.L[:, None]), idx, n)
+        t_has = j < n
+        t_sel = from_k & (idx <= torch.where(t_has, j, n - 1)[:, None])
+        trc, trs, trss, trmn, trmx, emit = _track_close(
+            scfg, c, t_sel, on, _at(t_vec, j), _at(iabs, j), active & ~is_det & t_has, events)
+        trk = c._replace(
+            k=torch.where(t_has, j + 1, n),
+            s=torch.where(t_has, DETECT, TRACK).to(torch.int32),
+            luntil=torch.where(t_has, _at(iabs, j) + (lock_tail - 1), c.luntil),
+            trc=trc, trs=trs, trss=trss, trmn=trmn, trmx=trmx,
+            e_cnt=c.e_cnt + emit.to(torch.int32),
+            e_ovf=c.e_ovf | (emit & (c.e_cnt >= scfg.cap)),
+        )
+        thr_out = torch.where((active & is_det)[:, None] & d_sel, thr_vec,
+                              torch.where((active & ~is_det)[:, None] & t_sel, c.L[:, None], thr_out))
+        return _pick(active & is_det, det, _pick(active & ~is_det, trk, c))
+
+    lanes = _lockstep(step, lanes, n)
+    return _episode_result(scfg, state, ext, n, prefix, lanes, events, thr_out)
+
+
+def stream_scan_jump(
+    scfg: StreamConfig,
+    state: StreamState,
+    over_noise: torch.Tensor,  # (n_blocks,) or (C, n_blocks)
+    psd_db_mean: torch.Tensor,  # like over_noise
+) -> Tuple[StreamState, StreamEvents, torch.Tensor]:
+    """Episode-jump formulation of :func:`stream_scan`: O(episodes) steps
+    instead of O(blocks), in plain PyTorch on the series' device.
+
+    The machine's transitions depend only on comparisons of ``over_noise``
+    against the precomputable base thresholds and against locked values,
+    which are copies of base thresholds chained through lock windows; the
+    tracking statistics never feed back into a transition.  So the loop
+    jumps from decision to decision: in Detection the next threshold
+    crossing is one masked first-index over the chunk, in Tracking the next
+    block below the locked value is another, and the tracked span's dB
+    statistics are masked reductions over it.
+
+    Channels run in lockstep (the reference ``vmap``s this function): each
+    step computes both phases for every channel and keeps each channel's
+    own, and a channel whose chunk is decided keeps its carry.  Every step
+    costs O(C · n); the host tests for the end once every
+    :data:`SYNC_EVERY` steps.  :data:`iterations` and :data:`syncs` count
+    both.
+
+    Contract against :func:`stream_scan` on the same inputs: thresholds,
+    event count, overflow, ``time_start`` / ``time_stop``, the ring and the
+    integer, lock and entry leaves of the state bit for bit; the events' dB
+    statistics and durations and the accumulated state sums to float32
+    summation order (masked sums against sequential adds).  An event whose
+    dB mean sits exactly at ``detection_db_over_noise_mean_min`` could flip
+    its acceptance, which is why this stays opt-in (``impl="jump"``).
+    Reference semantics anchor: `processor.py:444-510`.
+    """
+    return _per_channel(functools.partial(_jump, scfg), state, over_noise, psd_db_mean)
+
+
+def _hop(scfg: StreamConfig, state: StreamState, on: torch.Tensor, pm: torch.Tensor,
+         track_hop: int):
+    C, n = on.shape
+    dev = on.device
+    cap, ep_cap = scfg.cap, 4 * scfg.cap + 8
+    lock_tail = lock_tail_blocks(scfg.after_wait_sec, scfg.block_sec)
+    w_lock = max(lock_tail, 1)
+    W = max(w_lock, track_hop)
+    big = 2**30
+    base_thr, ext, idx, _, t_vec, prefix, lanes = _episode_setup(scfg, state, on, pm)
+    i0 = state.block_idx
+
+    # the first base-threshold crossing at or after each block (a NaN base
+    # threshold compares False), and one past the end for n
+    crossing = torch.where(on > base_thr, idx, n)
+    nxt = torch.cummin(crossing.flip(-1), -1).values.flip(-1)
+    nxt_ext = torch.cat([nxt, torch.full((C, 1), n, dtype=torch.int32, device=dev)], 1)
+    on_pad = torch.cat([on, torch.zeros((C, W), dtype=on.dtype, device=dev)], 1)
+    lane = torch.arange(W, dtype=torch.int32, device=dev)
+    lock_lane = lane < w_lock
+    track_lane = lane < track_hop
+
+    # event rows (time_start, time_stop, duration, db_min, db_max, db_mean,
+    # db_std); lock-episode rows (entry block, last block of the lock, both
+    # chunk-relative) and locked values.  Episode slot 0 carries the
+    # incoming lock window; the last slot of each takes dropped writes.
+    events = torch.zeros((7, C, cap + 1), dtype=on.dtype, device=dev)
+    ep = torch.stack([torch.full((C, ep_cap + 1), big, dtype=torch.int32, device=dev),
+                      torch.full((C, ep_cap + 1), -big, dtype=torch.int32, device=dev)])
+    ep[0, :, 0] = -big
+    ep[1, :, 0] = state.locked_until_block - i0
+    ep_lv = torch.zeros((1, C, ep_cap + 1), dtype=on.dtype, device=dev)
+    ep_lv[0, :, 0] = state.locked_threshold
+    ep_cnt = torch.ones(C, dtype=torch.int32, device=dev)
+    ep_ovf = torch.zeros(C, dtype=torch.bool, device=dev)
+
+    def record(rec, entry, last, value):
+        nonlocal ep_cnt, ep_ovf
+        slot = torch.where(rec & (ep_cnt < ep_cap), ep_cnt, ep_cap)
+        _file(ep, slot, torch.stack([entry, last]))
+        _file(ep_lv, slot, value[None])
+        ep_ovf = ep_ovf | (rec & (ep_cnt >= ep_cap))
+        ep_cnt = ep_cnt + rec.to(torch.int32)
+
+    def step(c: _Lanes) -> _Lanes:
+        active = c.k < n
+        is_det = c.s == DETECT
+        widx = c.k[:, None] + lane
+        wv = on_pad.gather(1, widx.to(torch.int64))
+        valid = widx < n
+        # Detection: a crossing of the locked value inside the (bounded)
+        # lock window, else the precomputed next base crossing after it
+        rel_until = c.luntil - i0
+        lock_first = _first(lock_lane & (widx <= rel_until[:, None]) & valid & (wv > c.L[:, None]),
+                            lane, W)
+        lock_has = lock_first < W
+        j_base = _at(nxt_ext, torch.maximum(c.k, rel_until + 1))
+        i_star = torch.where(lock_has, c.k + lock_first, j_base)
+        d_has = i_star < n
+        enter = is_det & d_has
+        # Tracking: the first block below the locked value within the hop
+        # window ends the track; else the whole window is tracked
+        t_first = _first(track_lane & valid & (wv < c.L[:, None]), lane, W)
+        t_has = t_first < W
+        j = c.k + torch.where(t_has, t_first, 0)
+        span = track_lane & valid & (widx <= torch.where(t_has, j, c.k + (track_hop - 1))[:, None])
+        rec = active & ~is_det & t_has
+        trc, trs, trss, trmn, trmx, emit = _track_close(
+            scfg, c, span, wv, _at(t_vec, j), i0 + j, rec, events)
+        record(rec, c.tsblk - i0, j + max(lock_tail - 1, 0), c.L)
+        new = _Lanes(
+            k=torch.where(is_det, torch.where(d_has, i_star + 1, n),
+                          torch.where(t_has, j + 1, torch.clamp(c.k + track_hop, max=n))),
+            s=torch.where(is_det, torch.where(d_has, TRACK, DETECT),
+                          torch.where(t_has, DETECT, TRACK)).to(torch.int32),
+            L=torch.where(enter, torch.where(lock_has, c.L, _at(base_thr, i_star)), c.L),
+            luntil=torch.where(~is_det & t_has, (i0 + j) + (lock_tail - 1), c.luntil),
+            tstart=torch.where(enter, _at(t_vec, i_star), c.tstart),
+            tsblk=torch.where(enter, i0 + i_star, c.tsblk),
+            trc=torch.where(enter, 0, torch.where(is_det, c.trc, trc)),
+            trs=torch.where(enter, 0.0, torch.where(is_det, c.trs, trs)),
+            trss=torch.where(enter, 0.0, torch.where(is_det, c.trss, trss)),
+            trmn=torch.where(enter, math.inf, torch.where(is_det, c.trmn, trmn)),
+            trmx=torch.where(enter, -math.inf, torch.where(is_det, c.trmx, trmx)),
+            e_cnt=c.e_cnt + emit.to(torch.int32),
+            e_ovf=c.e_ovf | (emit & (c.e_cnt >= cap)),
+        )
+        return _pick(active, new, c)
+
+    lanes = _lockstep(step, lanes, n)
+    # a chunk that ends mid-track keeps its locked value live to the end
+    end_track = lanes.s == TRACK
+    record(end_track, lanes.tsblk - i0, torch.full_like(i0, n - 1), lanes.L)
+
+    # the threshold series: per block, the most recent lock episode whose
+    # window covers it, else the base threshold.  eidx[i] = (# episode
+    # entries < i) − 1, one scatter-add and one int32 prefix sum (entries
+    # clip to [0, n]: slot 0's −big counts for every block, an unused
+    # slot's big for none)
+    ep_en, ep_te, ep_val = ep[0, :, :ep_cap], ep[1, :, :ep_cap], ep_lv[0, :, :ep_cap]
+    hist = torch.zeros((C, n + 1), dtype=torch.int32, device=dev)
+    hist.scatter_add_(1, torch.clamp(ep_en + 1, 0, n).to(torch.int64),
+                      torch.ones_like(ep_en))
+    eidx = torch.clamp(torch.cumsum(hist, 1, dtype=torch.int32)[:, :n] - 1, min=0).to(torch.int64)
+    covered = idx <= ep_te.gather(1, eidx)
+    thr_out = torch.where(covered, ep_val.gather(1, eidx), base_thr)
+    return (*_episode_result(scfg, state, ext, n, prefix, lanes, events, thr_out),
+            {"thr_degraded": ep_ovf})
+
+
+def stream_scan_jump_batch(
+    scfg: StreamConfig,
+    state: StreamState,
+    over_noise: torch.Tensor,  # (n_blocks,) or (C, n_blocks)
+    psd_db_mean: torch.Tensor,  # like over_noise
+    track_hop: int = 128,
+    with_diag: bool = False,
+):
+    """Episode-jump solver built for wide batches: each step is O(window)
+    per channel instead of :func:`stream_scan_jump`'s O(n_blocks), in plain
+    PyTorch on the series' device.
+
+    * **Detection, unlocked** — the next crossing of the *base* threshold
+      does not depend on where the search starts, so the first crossing at
+      or after every block is precomputed once (a reverse ``cummin``) and
+      the search is one gather.
+    * **Detection, inside a lock window** — the window is at most
+      ``lock_tail`` blocks, so the crossing of the locked value is one
+      fixed-width window and a masked first-index.
+    * **Tracking** — ``track_hop`` blocks at a time: one window finds the
+      first block below the locked value and adds the span's statistics.
+    * **Thresholds** — rebuilt after the loop from the recorded lock
+      episodes (entry block, end of the lock window, locked value): per
+      block the most recent episode covering it, else the base threshold.
+
+    Channels run in lockstep (the reference ``vmap``s this function), as in
+    :func:`stream_scan_jump`.  Contract against :func:`stream_scan`: as
+    :func:`stream_scan_jump`, the dB statistics to float32 summation order
+    of per-hop sums.  The threshold rebuild keeps ``4·cap + 8`` lock
+    episodes per chunk; beyond that the returned thresholds (never the
+    events) may take base thresholds inside dropped lock windows.
+    ``with_diag=True`` returns a fourth value ``{"thr_degraded": bool per
+    channel}``, true iff an episode record was dropped.
+    Reference semantics anchor: `processor.py:444-510`.
+    """
+    out = _per_channel(functools.partial(_hop, scfg, track_hop=track_hop), state, over_noise,
+                       psd_db_mean)
+    return out if with_diag else out[:3]
+
+
 def resolve_stream_auto(front: str, impl: str, device: DeviceLike) -> Tuple[str, str]:
     """Resolve ``front``/``impl`` ``"auto"`` for the device the chunk lies
     on: on a CUDA device the bins front and the fused kernel K3, on the CPU
@@ -535,41 +947,49 @@ def stream_process(
 
     Vectorized front half (:func:`stream_front` or
     :func:`stream_front_headless`), then the sequential state machine
-    (:func:`stream_scan` or :func:`stream_scan_fused`).  Returns
+    (:func:`stream_scan`, :func:`stream_scan_jump`,
+    :func:`stream_scan_jump_batch` or :func:`stream_scan_fused`).  Returns
     (new_state, events_found_in_chunk, diagnostics) where diagnostics
     carries the per-block series (over_noise, threshold, band dBs, and the
     psd waterfall with the welch front).
 
     ``front``/``impl`` default to ``"auto"`` (:func:`resolve_stream_auto`).
-    The episode-jump solvers ``"jump"`` / ``"hop"`` are not yet ported and
-    raise.
+    ``impl="jump"`` / ``"hop"`` select the episode-jump solvers
+    (:func:`stream_scan_jump`, :func:`stream_scan_jump_batch`): thresholds
+    and event boundaries bit-exact against the scan, dB statistics to
+    float32 summation order; ``"hop"`` adds ``diags["thr_degraded"]``.
     """
     front, impl = resolve_stream_auto(front, impl, samples.device)
-    if impl in ("jump", "hop"):
-        raise NotImplementedError(f"impl={impl!r} (episode-jump solver) {NOT_PORTED}")
     if front not in ("welch", "bins"):
         raise ValueError(f"unknown front {front!r} (use 'welch' or 'bins')")
-    if impl not in ("scan", "fused"):
-        raise ValueError(f"unknown impl {impl!r} (use 'scan' or 'fused')")
+    if impl not in ("scan", "jump", "hop", "fused"):
+        raise ValueError(f"unknown impl {impl!r} (use 'scan', 'jump', 'hop' or 'fused')")
     scfg = StreamConfig.from_config(cfg)
     block = int(round(cfg.proc_block_sec * fs))
     n_blocks = samples.shape[-1] // block
     if n_blocks == 0:
-        # the same key schema as a non-empty chunk of this front, with
-        # length-0 per-block series
+        # the same key schema as a non-empty chunk of this front and
+        # solver, with length-0 per-block series
         z = torch.zeros(0, dtype=torch.float32, device=samples.device)
         diags = {"over_noise": z, "threshold": z, "ms_db": z, "noise1_db": z, "noise2_db": z}
         if front == "welch":
             freqs = welch_freqs(fs, cfg.n_fft)
             diags["psd_db"] = torch.zeros((0, len(freqs)), dtype=torch.float32, device=samples.device)
             diags["freqs"] = freqs
+        if impl == "hop":
+            diags["thr_degraded"] = torch.zeros((), dtype=torch.bool, device=samples.device)
         return state, _empty_events(scfg.cap, torch.float32, samples.device), diags
 
     if front == "bins":
         over_noise, psd_db_mean, front_diags = stream_front_headless(cfg, samples, fs)
     else:
         over_noise, psd_db_mean, front_diags = stream_front(cfg, samples, fs)
-    solve = stream_scan if impl == "scan" else stream_scan_fused
-    state, events, thresholds = solve(scfg, state, over_noise, psd_db_mean)
-    diags = {"over_noise": over_noise, "threshold": thresholds, **front_diags}
+    extra = {}
+    if impl == "hop":
+        state, events, thresholds, extra = stream_scan_jump_batch(
+            scfg, state, over_noise, psd_db_mean, with_diag=True)
+    else:
+        solve = {"scan": stream_scan, "jump": stream_scan_jump, "fused": stream_scan_fused}[impl]
+        state, events, thresholds = solve(scfg, state, over_noise, psd_db_mean)
+    diags = {"over_noise": over_noise, "threshold": thresholds, **extra, **front_diags}
     return state, events, diags

@@ -94,7 +94,7 @@ def ring_base_thresholds(ring, i0, on, w: int, k_std: float):
     m = s / cnt_f
     m2 = s2 / cnt_f
     std = torch.sqrt(torch.maximum(m2 - m * m, zero))
-    k = torch.tensor(k_std, dtype=dt, device=dev)
+    k = torch.full((), k_std, dtype=dt, device=dev)  # a fill, not a copy that waits for the device
     return torch.where(cnt > 0, m + k * std, torch.full_like(m, math.nan)), ext
 
 

@@ -208,6 +208,47 @@ def block_band_sums_db(
     return [10.0 * torch.log10(pw[..., a:b].sum(dim=-1) / nseg) for a, b in slices]
 
 
+def welch_band_sums_db(
+    x: torch.Tensor,
+    nperseg: int,
+    projection: torch.Tensor,  # (nperseg, K) from welch_band_matrix, on x's device
+    slices,
+    noverlap: int | None = None,
+):
+    """Band dB levels over the last axis via :func:`welch_band_matrix` —
+    equal to ``band_sum_db(welch_psd(x, ...), band)`` per band to float32
+    summation order.  Returns a list of (...,)-shaped dB tensors.
+
+    When the hop divides ``nperseg`` (the standard 50 % overlap), the mean
+    over segments is taken as per-offset *group sums*: the segments at
+    offset class r (r·hop, r·hop + nperseg, ...) are one slice and reshape
+    of the input, so the overlapped frame tensor is never built.  Otherwise
+    the segments are framed (:func:`frame_signal`), projected and averaged.
+    The products are float32 (TF32 off).
+    """
+    if noverlap is None:
+        noverlap = nperseg // 2
+    hop = nperseg - noverlap
+    xf = x.to(torch.float32)
+    n = xf.shape[-1]
+    nseg = num_frames(n, nperseg, hop)
+    if nseg > 0 and nperseg % hop == 0:
+        sums = None
+        for off in range(0, nperseg, hop):
+            if n - off < nperseg:
+                continue
+            nf_r = (n - off - nperseg) // nperseg + 1
+            seg = xf[..., off : off + nf_r * nperseg].reshape(xf.shape[:-1] + (nf_r, nperseg))
+            pw = (seg @ projection).square()
+            s_r = [pw[..., a:b].sum(dim=(-2, -1)) for a, b in slices]
+            sums = s_r if sums is None else [s + t for s, t in zip(sums, s_r)]
+        return [10.0 * torch.log10(s / nseg) for s in sums]
+    seg = frame_signal(xf, nperseg, hop)  # (..., nseg, nperseg)
+    proj = seg @ projection
+    pw = proj * proj
+    return [10.0 * torch.log10(pw[..., a:b].sum(-1).mean(-1)) for a, b in slices]
+
+
 def band_sum_db(
     psd: torch.Tensor, freqs: np.ndarray, band: Tuple[float, float], floor: float = 0.0
 ) -> torch.Tensor:

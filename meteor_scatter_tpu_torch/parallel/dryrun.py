@@ -51,9 +51,8 @@ BLOCK = 1200
 N_FFT = 1024
 FREQ_BAND = (993.0, 1013.0)
 NOISE_BAND = (690.0, 710.0)
-# (front, impl) of the streaming cases; the JAX dryrun's "bins:hop" case
-# waits for the episode-jump solvers
-STREAM_CASES = (("welch", "scan"), ("bins", "fused"))
+# (front, impl) of the streaming cases, the JAX dryrun's three
+STREAM_CASES = (("welch", "scan"), ("bins", "hop"), ("bins", "fused"))
 IQ_ATOL = 2e-5
 
 

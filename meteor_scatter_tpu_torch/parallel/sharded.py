@@ -342,13 +342,14 @@ def sharded_stream_process(
     runs fully sharded over (station, time); the block-rate series are
     gathered over the time row and the sequential solve runs on every
     position of the row over its station group: the scan twin with
-    ``impl="scan"``, or one launch of the fused kernel K3 per position with
-    ``impl="fused"`` (its twin on a CPU mesh).  The result equals the
-    unsharded :func:`~meteor_scatter_tpu_torch.models.streaming.stream_process`
-    on the same device type.  ``"auto"`` resolves by the mesh's device type
+    ``impl="scan"``, the batched episode-jump solvers with ``impl="jump"``
+    / ``"hop"`` (``stream_scan_jump`` / ``stream_scan_jump_batch`` over the
+    group, where the reference ``vmap``s the one-series solver), or one
+    launch of the fused kernel K3 per position with ``impl="fused"`` (its
+    twin on a CPU mesh).  The result equals the unsharded
+    :func:`~meteor_scatter_tpu_torch.models.streaming.stream_process` on the
+    same device type.  ``"auto"`` resolves by the mesh's device type
     (:func:`~meteor_scatter_tpu_torch.models.streaming.resolve_stream_auto`).
-    The episode-jump solvers ``"jump"`` / ``"hop"`` are not yet ported and
-    raise.
 
     The carried ``StreamState`` is per channel (leading C axis, see
     ``stream_init_batch``), so chunked long-stream processing carries
@@ -378,17 +379,13 @@ def sharded_stream_process(
                 f"number of {block}-sample blocks"
             )
     front, impl = streaming.resolve_stream_auto(front, impl, mesh.device)
-    if impl in ("jump", "hop"):
-        raise NotImplementedError(
-            f"impl={impl!r} (episode-jump solver) {streaming.NOT_PORTED}")
     if front not in ("welch", "bins"):
         raise ValueError(f"unknown front {front!r} (use 'welch' or 'bins')")
-    if impl == "scan":
-        solve = streaming.stream_scan
-    elif impl == "fused":
-        solve = streaming.stream_scan_fused_batch
-    else:
-        raise ValueError(f"unknown impl {impl!r} (use 'scan' or 'fused')")
+    solvers = {"scan": streaming.stream_scan, "jump": streaming.stream_scan_jump,
+               "hop": streaming.stream_scan_jump_batch, "fused": streaming.stream_scan_fused_batch}
+    if impl not in solvers:
+        raise ValueError(f"unknown impl {impl!r} (use 'scan', 'jump', 'hop' or 'fused')")
+    solve = solvers[impl]
     scfg = streaming.StreamConfig.from_config(cfg)
     if state is None:
         state = streaming.stream_init_batch(scfg, n_ch, mesh.device)

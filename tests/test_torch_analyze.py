@@ -154,10 +154,11 @@ def test_parse_gqrx_start_time_matches_jax(name):
 def test_jax_free_import_and_run(tmp_path):
     """Every module of the port imports with ``import jax`` failing, the
     analyzer (both adaptive solvers, and its spectrogram PNGs), the live
-    detector (welch and headless, and its waterfall PNGs), the wideband
-    front end (real and I/Q), the segment monitor and the multi-device
-    dryrun (a virtual mesh of 8 CPU positions) run end to end on the CPU,
-    and afterwards no module of JAX or of the JAX package
+    detector (welch and headless, its waterfall PNGs, and the episode-jump
+    solvers ``--impl hop`` / ``jump``), the wideband front end (real and
+    I/Q), the segment monitor and the multi-device dryrun (a virtual mesh of
+    8 CPU positions) run end to end on the CPU, and afterwards no module of
+    JAX or of the JAX package
     ``meteor_scatter_tpu`` is loaded."""
     code = textwrap.dedent(
         """
@@ -186,7 +187,8 @@ def test_jax_free_import_and_run(tmp_path):
         path = sys.argv[1] + "/live.wav"
         write_wav(path, 4000, np.round(y * 32768).astype(np.int16))
         wf = sys.argv[1] + "/wf"
-        for extra in ([], ["--headless"], ["--spec-export-dir", wf]):
+        for extra in ([], ["--headless"], ["--spec-export-dir", wf], ["--impl", "hop"],
+                      ["--impl", "jump"]):
             out = io.StringIO()
             with contextlib.redirect_stdout(out):
                 assert live.main([path, "--device", "cpu", "--min-dur", "0.5", *extra]) == 0

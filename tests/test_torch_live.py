@@ -79,13 +79,29 @@ def test_chunking_and_impls_agree(wav, capsys):
     capsys.readouterr()
 
 
+@pytest.mark.parametrize("impl", ["jump", "hop"])
+def test_episode_impls_match_scan(wav, capsys, tmp_path, impl):
+    """``--impl jump|hop`` (the episode-jump solvers) print the event lines
+    of ``--impl scan``, with the Welch front, the headless one, and the
+    waterfall export (hop's per-feed ``thr_degraded`` leaves the ring and
+    the export queue as they are: the same PNGs)."""
+    for extra in ([], ["--headless"], ["--spec-export-dir"]):
+        out = {}
+        for run in ("scan", impl):
+            args = [str(tmp_path / run)] if extra == ["--spec-export-dir"] else []
+            assert tlive.main([wav, "--device", "cpu", "--impl", run, *ARGS, *extra, *args]) == 0
+            out[run] = capsys.readouterr().out
+        assert out[impl] == out["scan"] and len(EXTENT.findall(out[impl])) >= 3
+        if extra == ["--spec-export-dir"]:
+            pngs = sorted(p.name for p in (tmp_path / impl).iterdir())
+            assert pngs == sorted(p.name for p in (tmp_path / "scan").iterdir()) and pngs
+
+
 @pytest.mark.parametrize(
     "extra,match",
     [
         (["--ui"], "--ui"),
         (["--ui", "--spec-export-dir", "spec"], "--ui"),
-        (["--impl", "jump"], "jump"),
-        (["--impl", "hop"], "hop"),
     ],
 )
 def test_unported_options_raise(wav, tmp_path, extra, match):

@@ -361,10 +361,12 @@ def assert_stream_equal(got, want_per_channel, exact):
                 close(x, y, rtol=BINS_RTOL, atol=BINS_ATOL)
 
 
-@pytest.mark.parametrize("front,impl", [("welch", "scan"), ("bins", "fused")])
+@pytest.mark.parametrize("front,impl", [("welch", "scan"), ("bins", "fused"), ("welch", "jump"),
+                                        ("bins", "hop")])
 def test_sharded_stream_process_equals_unsharded(mesh, front, impl):
     """Time-sharded == the unsharded port (events, state, thresholds,
-    over_noise, the psd waterfall), with a burst on a seam."""
+    over_noise, the psd waterfall), with a burst on a seam, for every
+    solver (the episode-jump solvers run batched over each station group)."""
     x = stream_audio(11 if front == "welch" else 13)
     got = tsh.sharded_stream_process(CFG, None, t(x), STREAM_FS, mesh, front=front, impl=impl)
     scfg = tst.StreamConfig.from_config(CFG)
@@ -432,10 +434,12 @@ def test_sharded_stream_rejects(mesh):
         tsh.sharded_stream_process(CFG, None, torch.zeros(2, 4000 * 3), STREAM_FS, mesh)
     with pytest.raises(ValueError, match="must be whole"):
         tsh.sharded_stream_process(CFG, None, torch.zeros(2, 6, 800), STREAM_FS, mesh)
-    for impl in ("jump", "hop"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            tsh.sharded_stream_process(CFG, None, torch.zeros(2, 3200), STREAM_FS, mesh,
-                                       impl=impl)
+    with pytest.raises(ValueError, match="impl"):
+        tsh.sharded_stream_process(CFG, None, torch.zeros(2, 3200), STREAM_FS, mesh, impl="magic")
+    for impl in ("jump", "hop"):  # once unported, they run
+        _, ev, _ = tsh.sharded_stream_process(CFG, None, torch.zeros(2, 3200), STREAM_FS, mesh,
+                                              impl=impl)
+        assert ev.count.tolist() == [0, 0]
 
 
 # --- the wideband IQ bank ------------------------------------------------------
@@ -595,4 +599,5 @@ def test_dryrun_multichip_cpu_mesh():
     line = dryrun_multichip(8, devices=["cpu"] * 8)
     assert line.startswith("dryrun_multichip ok: mesh=(2x4), 144000 samples/channel")
     assert "events per channel: [3, 3]" in line
-    assert "welch:scan ([1, 1] events), bins:fused ([1, 1] events)" in line
+    # the JAX dryrun's three streaming cases (__graft_entry__.py)
+    assert "welch:scan ([1, 1] events), bins:hop ([1, 1] events), bins:fused ([1, 1] events)" in line

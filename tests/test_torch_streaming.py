@@ -263,6 +263,8 @@ def test_empty_chunk_keeps_the_diag_schema(front):
 
 
 def test_stream_process_rejects_unknown_and_unported():
+    """Unknown fronts and solvers raise; the episode-jump solvers, once
+    unported, now run (``tests/test_torch_episode.py`` holds them)."""
     st = tst.stream_init(tst.StreamConfig.from_config(T_CFG), "cpu")
     x = torch.zeros(4000)
     with pytest.raises(ValueError, match="front"):
@@ -270,8 +272,9 @@ def test_stream_process_rejects_unknown_and_unported():
     with pytest.raises(ValueError, match="impl"):
         tst.stream_process(T_CFG, st, x, FS, impl="magic")
     for impl in ("jump", "hop"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            tst.stream_process(T_CFG, st, x, FS, impl=impl)
+        st2, ev, dg = tst.stream_process(T_CFG, st, x, FS, impl=impl)
+        assert int(st2.block_idx) == 5 and int(ev.count) == 0
+        assert ("thr_degraded" in dg) == (impl == "hop")
     with pytest.raises(ValueError, match=r"\(C, n_blocks\)"):
         tst.stream_scan_fused_batch(T_SCFG, st, x[:10], x[:10])
 
