@@ -82,7 +82,23 @@ non-zero (there is no CPU fallback):
    one segment; then ``apps.monitor.main --wav`` over a synthetic 6 h day
    from 21:00 (the daily CSVs byte-equal to the port's ledger fed the
    truth on the same clock, one PNG per burst segment).
-13. e2e_sharded — the multi-device layer on virtual meshes that repeat the
+13. e2e_host    — the host slice: first a line with pandas' and
+   matplotlib's versions (null where absent, decided by ``find_spec``) and
+   g++'s path; the config tree's INI round trip (defaults and
+   ``config.example.ini``); ``apps.monitor.main --pump`` over the 6 h
+   replay against the WAV source on the audio timeline from yesterday
+   21:00 (pump, wav, wav, pump: CSVs and PNGs byte-equal, the native ring
+   and pump from ``csrc/ms_native.cc``, 0 dropped, segments/s of each);
+   with matplotlib, ``apps.analyze.main --plot-dir`` on the batch day's
+   first hour (4 PNGs, K1 once by the walk route, ms for the plots) and
+   ``apps.live.main --ui`` on 2 min of the live day under Agg, pacing off
+   (the event lines of a run without it, K3 once a 1 s feed, ms a feed with
+   and without the view); with pandas, ``apps.merge.main`` over the
+   analyzer's event CSV and every dashboard endpoint in-process on the pump
+   run's ledger (charts with matplotlib only), ms each.  Paths whose
+   package is missing are listed under ``not_run``.  Its K1 / K3 launches
+   are printed on its line and not added to the kernel records' counts.
+14. e2e_sharded — the multi-device layer on virtual meshes that repeat the
    card: the port's ``dryrun_multichip`` on a 2 x 4 mesh (every assertion
    of the JAX package's, its three streaming cases; K3 10 times, in
    ``bins:fused``); BASELINE config 5 (the stations fixture) through
@@ -104,6 +120,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import datetime
 import io
 import json
 import math
@@ -119,6 +136,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 DEVICE = "cuda"  # one card: the current CUDA device
+REPO = os.path.dirname(os.path.abspath(__file__))
 FS = 6000
 HOURS = 24
 BLOCK_SEC = 0.2
@@ -190,6 +208,8 @@ IQ_SHARD_REL_TOL = 1e-4
 MONITOR_FS, MONITOR_SEG_SEC, MONITOR_BATCH, MONITOR_NFFT = 5000, 30, 8, 2048
 IMAGE_NOISE, IMAGE_AMP, IMAGE_TONE_HZ = 300.0, 3000.0, 1000.0
 MONITOR_HOURS, MONITOR_START = 6, "2026-08-16T21:00:00"
+# e2e_host: live --ui feeds 1 s chunks; 2 min of the live day
+HOST_UI_SECONDS = 120
 # The exports' context after an event (SpecExportConfig.time_after_meteor_sec)
 SPEC_AFTER_SEC = 3.0
 # The episode-jump solvers against K3: the JAX package's split of fields
@@ -1498,6 +1518,263 @@ def phase_e2e_monitor(tmp: str) -> dict:
     return out
 
 
+def cut_host_inputs(tmp: str, host_tmp: str) -> dict:
+    """The first hour of the batch day (same gqrx name) and the first 2 min
+    of the live day, for ``e2e_host``."""
+    from meteor_scatter_tpu_torch.io.wavio import read_wav, write_wav
+
+    out = {"batch_hour": os.path.join(host_tmp, ANALYZE_WAV),
+           "live_2min": os.path.join(host_tmp, "live_4khz_2min.wav")}
+    for src, dst, seconds in ((os.path.join(tmp, ANALYZE_WAV), out["batch_hour"], 3600),
+                              (os.path.join(tmp, "live_4khz_24h.wav"), out["live_2min"],
+                               HOST_UI_SECONDS)):
+        fs, data = read_wav(src, mono=True)
+        write_wav(dst, fs, data[: fs * seconds])
+    return out
+
+
+def host_packages() -> dict:
+    """pandas / matplotlib versions (None where absent, decided by
+    ``find_spec`` without importing) and g++'s path."""
+    import importlib.metadata
+    import importlib.util
+    import shutil
+
+    found = {pkg: importlib.metadata.version(pkg) if importlib.util.find_spec(pkg) else None
+             for pkg in ("pandas", "matplotlib")}
+    return {**found, "gxx": shutil.which("g++")}
+
+
+def run_monitor_cli(wav: str, out: str, extra: list):
+    """``apps.monitor.main`` over the 6 h replay into fresh ``out/csv`` and
+    ``out/png``: (csv dir, png dir, wall seconds, segments, pump sources)."""
+    import torch
+
+    from meteor_scatter_tpu_torch.apps import monitor
+
+    made = []
+
+    class RecordedPump(monitor.PumpSegmentSource):
+        """The CLI's pump source, kept with its ring's and pump's native flags
+        as constructed (``stop`` clears the pump's handle)."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.native_at_start = (self.ring.native, self.pump.native)
+            made.append(self)
+
+    csv_dir, png_dir = os.path.join(out, "csv"), os.path.join(out, "png")
+    start = (datetime.date.today() - datetime.timedelta(days=1)).isoformat() + "T21:00:00"
+    monitor.PumpSegmentSource = RecordedPump
+    try:
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            rc = monitor.main(["--wav", wav, "--csv-out", csv_dir, "--spec-out", png_dir,
+                               "--start-time", start, "--device", DEVICE, *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        monitor.PumpSegmentSource = RecordedPump.__bases__[0]
+    launches = launch_counts()
+    segments = log.getvalue().count("Critical bursts this segment")
+    if rc != 0 or any(launches.values()) or segments != MONITOR_HOURS * 3600 // MONITOR_SEG_SEC:
+        raise AssertionError(f"monitor.main {extra}: rc {rc}, {segments} segments, {launches}")
+    return csv_dir, png_dir, wall, segments, made
+
+
+def same_tree(a: str, b: str) -> bool:
+    """The same file names with the same bytes."""
+    names = sorted(os.listdir(a))
+    return names == sorted(os.listdir(b)) and all(
+        file_bytes(os.path.join(a, n)) == file_bytes(os.path.join(b, n)) for n in names)
+
+
+def phase_e2e_host(tmp: str, inputs: dict) -> dict:
+    """The host slice: the config round trip; ``monitor --pump`` over the 6 h
+    replay against the WAV source (byte-equal ledger and PNGs, the native
+    ring and pump, segments/s interleaved pump, wav, wav, pump); with
+    matplotlib, ``analyze --plot-dir`` on the batch hour and ``live --ui``
+    on 2 min of the live day (Agg, pacing off); with pandas, the merge of
+    the analyzer's event CSV and every dashboard endpoint in-process on the
+    pump run's ledger (charts only with matplotlib).  A package found
+    missing (``find_spec``, before anything runs) lists its paths under
+    ``not_run``."""
+    import dataclasses
+    import shutil
+
+    from meteor_scatter_tpu_torch import config as tcfg
+
+    pkgs = host_packages()
+    emit({"phase": "e2e_host_packages", **pkgs})
+    not_run = []
+    if pkgs["matplotlib"] is None:
+        not_run += [{"path": p, "reason": "matplotlib is not installed"}
+                    for p in ("analyze --plot-dir", "live --ui", "dashboard charts")]
+    if pkgs["pandas"] is None:
+        not_run += [{"path": p, "reason": "pandas is not installed"}
+                    for p in ("merge", "dashboard")]
+    out = {"phase": "e2e_host", "card": nvidia_smi_line(), "packages": pkgs}
+
+    # --- the INI round trip: the defaults and the repo's example file ---
+    example = tcfg.load_config(os.path.join(REPO, "config.example.ini"))
+    for cfg in (tcfg.FrameworkConfig(), example):
+        back = tcfg.from_ini(tcfg.to_ini(cfg))
+        if dataclasses.asdict(back) != dataclasses.asdict(cfg):
+            raise AssertionError("the INI round trip changed the configuration")
+    out["config_round_trip"] = {"sections": len(tcfg._SECTIONS), "equal": True}
+
+    # --- monitor --pump against the WAV source, interleaved ---
+    wav = os.path.join(tmp, "monitor_5khz.wav")
+    runs = {"pump": [], "wav": []}
+    trees = {}
+    for k, kind in enumerate(("pump", "wav", "wav", "pump")):
+        csv_dir, png_dir, wall, segments, made = run_monitor_cli(
+            wav, os.path.join(tmp, f"host_{kind}{k}"), ["--pump"] if kind == "pump" else [])
+        runs[kind].append(segments / wall)
+        trees.setdefault(kind, (csv_dir, png_dir))
+        if kind == "pump":
+            src = made[0]
+            if src.native_at_start != (True, True) or src.ring.dropped() != 0:
+                raise AssertionError(f"pump: native (ring, pump) {src.native_at_start}, "
+                                     f"{src.ring.dropped()} dropped")
+            if src.pump.frames_pushed() != segments * MONITOR_FS * MONITOR_SEG_SEC:
+                raise AssertionError(f"pump pushed {src.pump.frames_pushed()} frames")
+    for i in range(2):
+        if not same_tree(trees["pump"][i], trees["wav"][i]):
+            raise AssertionError(f"monitor --pump: {('csv', 'png')[i]} files differ from the WAV "
+                                 "source's")
+    from meteor_scatter_tpu_torch.io.native import load_native
+
+    out["pump"] = {
+        "segments": segments, "native_ring": True, "native_pump": True, "dropped": 0,
+        "library": load_native()._name, "csv_png_equal_wav_source": True,
+        "segments_per_s_pump": runs["pump"], "segments_per_s_wav": runs["wav"],
+        "order": ["pump", "wav", "wav", "pump"],
+    }
+    ledger_dir = trees["pump"][0]
+
+    if pkgs["matplotlib"] is not None:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        from meteor_scatter_tpu_torch.apps import analyze
+
+        # --- analyze --plot-dir on the batch hour: K1 as before, 4 PNGs ---
+        plots, events_csv = os.path.join(tmp, "plots"), os.path.join(tmp, "hour_events.csv")
+        zero_launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = analyze.main([inputs["batch_hour"], "--plot-dir", plots, "--out-csv", events_csv,
+                               "--device", DEVICE])
+        launches = launch_counts()
+        from meteor_scatter_tpu_torch.ops.kernels import adaptive_kernel as ak
+
+        names = sorted(os.listdir(plots))
+        if rc != 0 or names != ["delta_threshold.png", "hist_db.png", "hist_duration.png",
+                                "per_hour.png"] or launches["adaptive_solver"] != 1 \
+                or ak.walk_launches != 1:
+            raise AssertionError(f"analyze --plot-dir: rc {rc}, {names}, {launches}")
+        res = analyze.proc_wav_file(inputs["batch_hour"], device=DEVICE, verbose=False,
+                                    expected_sample_rate=None,
+                                    wav_start_date_time=analyze.parse_gqrx_start_time(ANALYZE_WAV))
+        t0 = time.perf_counter()
+        analyze.export_debug_plots(res, os.path.join(tmp, "plots_timed"))
+        out["plot_dir"] = {"seconds": 3600, "events": len(res.detections), "pngs": names,
+                           "k1_launches": launches["adaptive_solver"],
+                           "ms_four_pngs": (time.perf_counter() - t0) * 1e3}
+
+        # --- live --ui on 2 min of the live day, pacing off ---
+        cut = [inputs["live_2min"], "--device", DEVICE, *LIVE_ARGS]
+        plain, _, _, _, _ = run_live_main(cut)
+        ui, _, ui_wall, k3, _ = run_live_main([*cut, "--ui", "--realtime-factor", "1e9"])
+        import matplotlib.pyplot as plt
+
+        plt.close("all")
+        if ui != plain or not plain or k3 != HOST_UI_SECONDS:
+            raise AssertionError(f"live --ui: events {ui} against {plain}, K3 {k3} launches")
+        from meteor_scatter_tpu_torch.apps import live
+
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            live.wav_file_process(inputs["live_2min"], live_config(), chunk_sec=1.0,
+                                  expected_sample_rate=None, device=DEVICE)
+        plain_wall = time.perf_counter() - t0
+        out["ui"] = {"seconds": HOST_UI_SECONDS, "events": len(ui), "lines_equal": True,
+                     "k3_launches": k3, "feeds": HOST_UI_SECONDS,
+                     "ms_per_feed_with_view": ui_wall / HOST_UI_SECONDS * 1e3,
+                     "ms_per_feed_without_view": plain_wall / HOST_UI_SECONDS * 1e3}
+
+    if pkgs["pandas"] is not None:
+        from meteor_scatter_tpu_torch.apps import merge
+        from meteor_scatter_tpu_torch.config import DashboardConfig
+        from meteor_scatter_tpu_torch.dashboard.app import DashboardApp
+
+        # --- merge: the analyzer's event CSV (written above with matplotlib,
+        # else by the analyzer alone) ---
+        events_csv = os.path.join(tmp, "hour_events.csv")
+        if not os.path.exists(events_csv):
+            from meteor_scatter_tpu_torch.apps import analyze
+
+            with contextlib.redirect_stdout(io.StringIO()):
+                analyze.proc_wav_file(inputs["batch_hour"], out_csv_file=events_csv,
+                                      device=DEVICE, verbose=False, expected_sample_rate=None,
+                                      wav_start_date_time=analyze.parse_gqrx_start_time(
+                                          ANALYZE_WAV))
+        merged = os.path.join(tmp, "merged")
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            rc = merge.main([events_csv, "--out-dir", merged])
+        merge_ms = (time.perf_counter() - t0) * 1e3
+        want = {"report.html"} | ({"per_hour.png", "per_day.png", "heatmap.pdf"}
+                                  if pkgs["matplotlib"] else
+                                  {"per_hour.csv", "per_day.csv", "heatmap.csv"})
+        if rc != 0 or set(os.listdir(merged)) != want:
+            raise AssertionError(f"merge: rc {rc}, {sorted(os.listdir(merged))}")
+        out["merge"] = {"rows": len(read_rows(events_csv)), "files": sorted(want), "ms": merge_ms}
+
+        # --- every dashboard endpoint, in-process, on the pump run's ledger ---
+        static = os.path.join(tmp, "static")
+        os.makedirs(static)
+        pkg_static = os.path.join(REPO, "meteor_scatter_tpu_torch", "dashboard", "static")
+        for name in ("script.js", "styles.css"):
+            shutil.copy(os.path.join(pkg_static, name), static)
+        app = DashboardApp(DashboardConfig(csv_folder=ledger_dir,
+                                           csv_storage_path=os.path.join(tmp, "final.csv")),
+                           static_dir=static)
+        requests = [("GET", "/"), ("GET", "/config/slideshow_interval"), ("POST", "/update_csv"),
+                    ("GET", "/api/dynamischer_inhalt"), ("GET", "/static/script.js"),
+                    ("GET", "/static/slides/Folie1.png")]
+        if pkgs["matplotlib"]:
+            requests += [("GET", f"/load_chart/{c}") for c in
+                         ("zeiger", "tagesverlauf", "week", "month")]
+        ms = {}
+        for method, path in requests:
+            got = {}
+            t0 = time.perf_counter()
+            body = b"".join(app({"REQUEST_METHOD": method, "PATH_INFO": path,
+                                 "wsgi.input": io.BytesIO(b"")},
+                                lambda status, headers: got.update(status=status)))
+            ms[f"{method} {path}"] = (time.perf_counter() - t0) * 1e3
+            if got["status"] != "200 OK":
+                raise AssertionError(f"dashboard {method} {path}: {got['status']} {body[:200]}")
+            if path.startswith("/load_chart/"):
+                png = file_bytes(os.path.join(static, json.loads(body)["img_url"].split("/")[-1]))
+                if png is None or png[:8] != b"\x89PNG\r\n\x1a\n":
+                    raise AssertionError(f"dashboard {path}: no PNG")
+            if path == "/api/dynamischer_inhalt":
+                missing = len(json.loads(body)["missing_days"])
+        # the replay's first day is yesterday: the other 30 of the month are missing
+        if missing != 30:
+            raise AssertionError(f"dashboard: {missing} missing days, expected 30")
+        out["dashboard"] = {"endpoints": len(ms), "missing_days": missing, "ms": ms}
+    out["not_run"] = not_run
+    emit(out)
+    return out
+
+
 def phase_e2e_spec_export(tmp: str) -> dict:
     """The spectrogram PNG exports: the analyzer's ``--out-spec-dir`` on the
     first hour of the batch day (one PNG per event, named from the event
@@ -2009,24 +2286,27 @@ def main() -> int:
     info = phase_device()
     phase_build()
     records = {"adaptive_solver": phase_kernel_k1(), "stream_machine": phase_kernel_k3()}
-    with tempfile.TemporaryDirectory() as tmp:
-        e2e = phase_e2e(tmp)
-        x = analyzer_day(tmp)
-        records["bandpower"] = phase_kernel_k2(x)
-        e2e_bp = phase_e2e_bandpower(x)
-        del x
-        torch.cuda.empty_cache()
-        e2e_live = phase_e2e_live(tmp)
-        phase_e2e_spec_export(tmp)
-        phase_e2e_episode(tmp)
-    e2e_st = phase_e2e_stations()
-    phase_e2e_frontend()
-    iq = frontend_iq_fixture()
-    e2e_fiq = phase_e2e_frontend_iq(iq)
-    with tempfile.TemporaryDirectory() as tmp:
-        phase_e2e_monitor(tmp)
-        phase_e2e_sharded(tmp, iq)
-    del iq
+    with tempfile.TemporaryDirectory() as host_tmp:
+        with tempfile.TemporaryDirectory() as tmp:
+            e2e = phase_e2e(tmp)
+            x = analyzer_day(tmp)
+            records["bandpower"] = phase_kernel_k2(x)
+            e2e_bp = phase_e2e_bandpower(x)
+            del x
+            torch.cuda.empty_cache()
+            e2e_live = phase_e2e_live(tmp)
+            phase_e2e_spec_export(tmp)
+            phase_e2e_episode(tmp)
+            host_inputs = cut_host_inputs(tmp, host_tmp)
+        e2e_st = phase_e2e_stations()
+        phase_e2e_frontend()
+        iq = frontend_iq_fixture()
+        e2e_fiq = phase_e2e_frontend_iq(iq)
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_e2e_monitor(tmp)
+            phase_e2e_host(tmp, host_inputs)
+            phase_e2e_sharded(tmp, iq)
+        del iq
     loaded = port_modules_loaded_from_jax()
     if loaded:
         raise AssertionError(f"the port loaded JAX or the JAX package: {loaded[:5]}")

@@ -24,7 +24,13 @@ Ported so far:
   critical rule (:mod:`meteor_scatter_tpu_torch.models.image`, plain
   PyTorch), the hourly CSV ledger and PNG copies on the host; and the
   spectrogram PNG exports of the analyzer and the live CLI
-  (:mod:`meteor_scatter_tpu_torch.io.spec_export`).
+  (:mod:`meteor_scatter_tpu_torch.io.spec_export`);
+* the host code: the config tree and its INI round trip
+  (:mod:`meteor_scatter_tpu_torch.config`), the native ring buffer and WAV
+  pump (:mod:`meteor_scatter_tpu_torch.io.native`, ``csrc/ms_native.cc``)
+  behind the monitor's ``--pump``, the live view, the analyzer's debug
+  plots, the multi-day merge (:mod:`meteor_scatter_tpu_torch.apps.merge`)
+  and the dashboard (:mod:`meteor_scatter_tpu_torch.dashboard`).
 
 Every function takes its tensors on an explicit device; nothing here keeps
 a global default device.  Importing the package sets the float32 matmul
@@ -33,4 +39,12 @@ policy once (:mod:`meteor_scatter_tpu_torch.device`).
 
 __version__ = "0.1.0"
 
+from meteor_scatter_tpu_torch.config import (  # noqa: F401
+    AnalyzeConfig,
+    BandPowerConfig,
+    DetectionConfig,
+    ShardingConfig,
+    SpecExportConfig,
+    VisualizationConfig,
+)
 from meteor_scatter_tpu_torch.device import resolve_device  # noqa: F401

@@ -15,9 +15,9 @@ Usage::
         --out-csv events.csv --out-audacity prelbl.txt --device cuda
 
 Filename → UTC start-time parsing supports the reference's gqrx pattern
-``*_gqrx_YYYYMMDD_HHMMSS_<freq>.wav`` (`main.py:858-863`).
-
-Not yet ported: ``--plot-dir`` (debug plots); it raises.
+``*_gqrx_YYYYMMDD_HHMMSS_<freq>.wav`` (`main.py:858-863`).  ``--plot-dir``
+writes the debug plots (delta power against the threshold, histograms,
+detections per hour; needs matplotlib).
 """
 
 from __future__ import annotations
@@ -46,9 +46,6 @@ from meteor_scatter_tpu_torch.models.fixed import detect_fixed
 from meteor_scatter_tpu_torch.ops.bandpower import delta_power_db
 from meteor_scatter_tpu_torch.utils.timing import PhaseTimer
 
-NOT_PORTED = "is not yet ported to meteor_scatter_tpu_torch (use meteor_scatter_tpu.apps.analyze)"
-
-
 @dataclass
 class AnalyzeResult:
     detections: List[OutputDetection]
@@ -59,6 +56,72 @@ class AnalyzeResult:
     sample_rate: int
     block_duration_sec: float
     timer: PhaseTimer = field(default_factory=PhaseTimer)
+
+
+def export_debug_plots(res: "AnalyzeResult", out_dir: str) -> List[str]:
+    """Static result plots mirroring the reference's debug_plot_output set
+    (`main.py:531-565,660-719`): delta power vs adaptive threshold with
+    detection spans, duration / dB histograms, and detections per hour.
+    Requires matplotlib (optional dependency)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    os.makedirs(out_dir, exist_ok=True)
+    written = []
+    times = np.arange(len(res.delta_power)) * res.block_duration_sec
+
+    fig, ax = plt.subplots(figsize=(10, 5))
+    ax.plot(times, res.delta_power, label="Delta Power")
+    ax.plot(times, res.thresholds, label="Adaptive Threshold", linestyle="--", color="red")
+    for det in res.detections:
+        ax.axvspan(det.t_start, det.t_stop, color="orange", alpha=0.5)
+    ax.set_xlabel("Zeit (s)")
+    ax.set_ylabel("Leistung (dB)")
+    ax.legend()
+    ax.grid(True)
+    fig.tight_layout()
+    p = os.path.join(out_dir, "delta_threshold.png")
+    fig.savefig(p, dpi=150)
+    plt.close(fig)
+    written.append(p)
+
+    for name, vals, xlabel in [
+        ("hist_duration", [d.dur_s for d in res.detections], "Duration (s)"),
+        ("hist_db", [d.dB for d in res.detections], "dB"),
+    ]:
+        fig, ax = plt.subplots(figsize=(10, 5))
+        ax.hist(vals, bins=30, alpha=0.7)
+        ax.set_xlabel(xlabel)
+        ax.set_ylabel("Count")
+        ax.grid(True)
+        fig.tight_layout()
+        p = os.path.join(out_dir, f"{name}.png")
+        fig.savefig(p, dpi=150)
+        plt.close(fig)
+        written.append(p)
+
+    hours = {}
+    for det in res.detections:
+        if det.utc_start is not None:
+            h = det.utc_start.replace(minute=0, second=0, microsecond=0)
+            hours[h] = hours.get(h, 0) + 1
+    if hours:
+        keys = sorted(hours)
+        fig, ax = plt.subplots(figsize=(12, 6))
+        ax.bar([k.strftime("%Y-%m-%d %H:%M") for k in keys], [hours[k] for k in keys],
+               color="skyblue")
+        ax.set_xlabel("UTC Zeit (Datum + Stunde)")
+        ax.set_ylabel("Anzahl der Detektionen")
+        ax.set_title("Detektionen pro Stunde")
+        plt.setp(ax.get_xticklabels(), rotation=45, ha="right")
+        fig.tight_layout()
+        p = os.path.join(out_dir, "per_hour.png")
+        fig.savefig(p, dpi=150)
+        plt.close(fig)
+        written.append(p)
+    return written
 
 
 def parse_gqrx_start_time(file_path: str) -> Optional[datetime.datetime]:
@@ -205,11 +268,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--out-csv", default=None)
     p.add_argument("--out-audacity", default=None)
     p.add_argument("--out-spec-dir", default=None)
-    p.add_argument("--plot-dir", default=None, help="not yet ported; raises")
+    p.add_argument("--plot-dir", default=None, help="write delta/threshold + histogram plots")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.plot_dir:
-        raise NotImplementedError(f"--plot-dir (debug plots) {NOT_PORTED}")
 
     bw = args.bandwidth
     res = proc_wav_file(
@@ -229,6 +290,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         expected_sample_rate=args.sample_rate,
         device=args.device,
     )
+    if args.plot_dir:
+        for w in export_debug_plots(res, args.plot_dir):
+            print("wrote", w)
     print(f"Found {len(res.detections)} detections")
     print(res.timer.summary())
     return 0

@@ -19,9 +19,9 @@ Usage::
 
 Per-event waterfall PNGs (``--spec-export-dir``) are exported once the ±3 s
 context window fits the waterfall ring, with the auto-gained dB range from
-the initialization phase (`processor.py:294-343`).
-
-Not yet ported: ``--ui`` (the live matplotlib dashboard); it raises.
+the initialization phase (`processor.py:294-343`).  ``--ui`` draws the live
+3x2 dashboard (:mod:`meteor_scatter_tpu_torch.apps.live_view`, matplotlib),
+fed in 1 s chunks.
 """
 
 from __future__ import annotations
@@ -45,7 +45,6 @@ from meteor_scatter_tpu_torch.models.streaming import (
 )
 from meteor_scatter_tpu_torch.ops.welch import welch_freqs
 
-NOT_PORTED = "is not yet ported to meteor_scatter_tpu_torch (use meteor_scatter_tpu.apps.live)"
 EVENT_FIELDS = StreamEvents._fields[:7]
 
 
@@ -57,8 +56,9 @@ class LiveSession:
     asked for (``spec.output_dir``), each feed's PSD waterfall also crosses
     to the host ring (`processor.py:223-229`) and pending events are
     exported once their window is inside it (`processor.py:294-343`);
-    otherwise the ring stays empty.  The live UI is not yet ported: asking
-    for it raises.
+    otherwise the ring stays empty.  Each feed leaves its diagnostics (on
+    ``device``) in ``last_diags`` and its first block's index in
+    ``block_offset_before_feed``, which the live view reads.
     """
 
     def __init__(
@@ -71,16 +71,15 @@ class LiveSession:
         impl: str = "auto",
         device: DeviceLike = "cuda",
     ):
-        if vis is not None and vis.enable_ui_plots:
-            raise NotImplementedError(f"the live UI (--ui) {NOT_PORTED}")
         self.cfg = cfg
         self.fs = fs
         self.device = resolve_device(device)
         self.vis = vis or VisualizationConfig()
         self.spec = spec or SpecExportConfig()
-        # bins-only front half (no PSD waterfall, so no spec export), an
-        # opt-in throughput mode (models/streaming.py stream_front_headless)
-        self.headless = headless and not self.spec.output_dir
+        # bins-only front half (no PSD waterfall, so no spec export and no
+        # UI), an opt-in throughput mode (models/streaming.py
+        # stream_front_headless)
+        self.headless = headless and not self.vis.enable_ui_plots and not self.spec.output_dir
         # block-rate solver: "auto" (fused on a GPU, scan on the CPU, see
         # models/streaming.py resolve_stream_auto), "scan", "jump", "hop" or
         # "fused"
@@ -103,11 +102,13 @@ class LiveSession:
             return []
         usable = n_blocks * self.block_samples
         x = torch.as_tensor(np.asarray(samples[:usable], dtype=np.float32)).to(self.device)
+        self.block_offset_before_feed = self._blocks_fed
         self.state, events, diags = stream_process(
             self.cfg, self.state, x, self.fs,
             front="bins" if self.headless else "welch",
             impl=self.impl,
         )
+        self.last_diags = diags
 
         # waterfall ring, only for the export (it is all it serves here)
         if self.spec.output_dir:
@@ -184,21 +185,37 @@ def wav_file_process(
         data = data.astype(np.float32) / 32768.0
     data = np.asarray(data, dtype=np.float32)
 
-    sess = LiveSession(config_detection, fs, config_visualization, config_spec_export,
+    vis = config_visualization or VisualizationConfig()
+    sess = LiveSession(config_detection, fs, vis, config_spec_export,
                        headless=headless, impl=impl, device=device)
+    view = None
+    if vis.enable_ui_plots:
+        from meteor_scatter_tpu_torch.apps.live_view import LiveView
+
+        view = LiveView(config_detection, vis, fs, sess.freqs)
+        # UI pacing works best on ~1 s chunks
+        chunk_sec = min(chunk_sec, 1.0)
     chunk = int(chunk_sec * fs)
     chunk -= chunk % sess.block_samples
-    # a chunk_sec below one processing block would round to zero — feed at
-    # least one whole block per chunk
+    # a chunk_sec below one processing block (e.g. --ui clamps to 1 s while
+    # --block-sec 2) would round to zero — feed at least one whole block per
+    # chunk
     chunk = max(chunk, sess.block_samples)
     for i in range(0, len(data), chunk):
-        for ev in sess.feed(data[i : i + chunk]):
+        new = sess.feed(data[i : i + chunk])
+        for ev in new:
             print(
                 f"Detected Meteor: start={ev['time_start']:.2f}s stop={ev['time_stop']:.2f}s "
                 f"dur={ev['duration']:.2f}s dB mean={ev['db_mean']:.2f} "
                 f"min={ev['db_min']:.2f} max={ev['db_max']:.2f} std={ev['db_std']:.2f} "
                 f"// total {len(sess.events)}"
             )
+        if view is not None:
+            if int(sess.state.state) != 0:  # auto-gain only after Initialization
+                view.psd_mean_from_init = float(sess.state.psd_db_mean_from_init)
+            view.update(sess.last_diags, sess.block_offset_before_feed, new)
+    if view is not None:
+        view.finish()
     return sess.events
 
 
@@ -216,9 +233,8 @@ def main(argv=None) -> int:
     p.add_argument("--stop-sec", type=float, default=-1.0)
     p.add_argument("--sample-rate", type=int, default=None)
     p.add_argument("--spec-export-dir", default="")
-    p.add_argument("--ui", action="store_true", help="not yet ported; raises")
-    p.add_argument("--realtime-factor", type=float, default=16.0,
-                   help="pace of the live UI (not yet ported)")
+    p.add_argument("--ui", action="store_true", help="live 3x2 dashboard (needs matplotlib GUI)")
+    p.add_argument("--realtime-factor", type=float, default=16.0)
     p.add_argument("--headless", action="store_true",
                    help="bins-only front half (no PSD waterfall); band numerics "
                         "within f32 noise of the Welch path")
@@ -232,8 +248,6 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     if args.headless and (args.ui or args.spec_export_dir):
         p.error("--headless excludes --ui and --spec-export-dir (both need the PSD waterfall)")
-    if args.ui:
-        raise NotImplementedError(f"--ui (the live dashboard) {NOT_PORTED}")
 
     cfg = DetectionConfig(
         proc_block_sec=args.block_sec,
@@ -250,7 +264,8 @@ def main(argv=None) -> int:
     events = wav_file_process(
         args.wav,
         cfg,
-        config_visualization=VisualizationConfig(realtime_factor=args.realtime_factor),
+        config_visualization=VisualizationConfig(enable_ui_plots=args.ui,
+                                                 realtime_factor=args.realtime_factor),
         config_spec_export=spec,
         wav_file_start_sec=args.start_sec,
         wav_file_stop_sec=args.stop_sec,

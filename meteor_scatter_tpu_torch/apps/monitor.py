@@ -9,7 +9,9 @@ plus a spectrogram PNG copy for any segment with detections
 (`prime_detection.py:198-203`).
 
 Audio sources: a WAV file consumed in segment-sized chunks (testing /
-reprocessing) or an external command producing raw PCM on stdout (the
+reprocessing), the same file streamed by the native runtime's background
+pump thread into a lock-free ring (``--pump``, the deployment-shaped
+ingest), or an external command producing raw PCM on stdout (the
 deployment path, e.g. ffmpeg pulling the stream the reference grabs).
 Failure handling mirrors the reference: segment-length check with source
 rebuild (`prime_detection.py:150-173`) and sleep-backoff on grab errors
@@ -19,8 +21,6 @@ Usage::
 
     python -m meteor_scatter_tpu_torch.apps.monitor --wav day.wav \\
         --csv-out csv-out --spec-out spec-out --device cuda
-
-Not yet ported: ``--pump`` (the native runtime's WAV pump); it raises.
 """
 
 from __future__ import annotations
@@ -39,13 +39,11 @@ import torch
 from meteor_scatter_tpu_torch.config import MonitorConfig
 from meteor_scatter_tpu_torch.device import DeviceLike, resolve_device
 from meteor_scatter_tpu_torch.io.ledger import HourlyLedger
+from meteor_scatter_tpu_torch.io.native import NativeWavReader, PcmRing, WavPump
 from meteor_scatter_tpu_torch.io.png import colorize, upscale_to, write_png
 from meteor_scatter_tpu_torch.io.wavio import read_wav
 from meteor_scatter_tpu_torch.models.image import detect_and_cluster_bursts
 from meteor_scatter_tpu_torch.utils.timing import PhaseTimer
-
-NOT_PORTED = "is not yet ported to meteor_scatter_tpu_torch (use meteor_scatter_tpu.apps.monitor)"
-
 
 class OffsetJournal:
     """Persisted stream offset for replayable sources: journaling the
@@ -107,6 +105,54 @@ class WavSegmentSource:
         if self.realtime:
             time.sleep(self.seg_sec)
         return out
+
+
+class PumpSegmentSource:
+    """Deployment-shaped WAV ingest: a background producer thread (the
+    native runtime's C++ pump when available, `io/native.py::WavPump`)
+    streams the file into a lock-free SPSC ring while this thread pops
+    fixed segments — the same producer/consumer split as the reference's
+    TwitchAudioGrabber thread + detection loop (prime_detection.py:49-57,
+    :128), with file IO overlapping device compute.
+
+    ``pos`` counts the samples popped, as the WAV source's does, so
+    ``--start-time`` dates the ledger by the audio timeline here too (the
+    JAX package's pump source has no position and refuses it).
+    """
+
+    def __init__(self, path: str, cfg: MonitorConfig, realtime: bool = False):
+        probe = NativeWavReader(path)
+        if probe.fs != cfg.sample_rate:
+            probe.close()
+            raise ValueError(f"expected {cfg.sample_rate} Hz, got {probe.fs}")
+        probe.close()
+        self.seg = cfg.sample_rate * cfg.segment_len_sec
+        # ring holds a few segments: enough prefetch to hide IO, small
+        # enough to bound memory like the reference's one-segment grabs
+        self.ring = PcmRing(4 * self.seg)
+        self.pump = WavPump(
+            path, self.ring, chunk_frames=self.seg,
+            pace_factor=1.0 if realtime else 0.0,
+        )
+        self.pos = 0
+        self.source_id = os.path.abspath(path)
+
+    def grab(self) -> Optional[np.ndarray]:
+        while True:
+            seg = self.ring.pop_segment(self.seg)
+            if seg is not None:
+                self.pos += self.seg
+                # back to int16 amplitude scale: the spectrogram dB windows
+                # are calibrated to raw PCM like the reference's grabber
+                # output (exact inverse of the ring's /32768 pop scaling,
+                # so a PCM16 file gives the WAV source's samples bit for bit)
+                return seg * np.float32(32768.0)
+            if not self.pump.running() and self.ring.available() < self.seg:
+                return None  # EOF: trailing partial segment is discarded
+            time.sleep(0.005)
+
+    def close(self) -> None:
+        self.pump.stop()
 
 
 class CommandSegmentSource:
@@ -256,7 +302,10 @@ def main(argv=None) -> int:
     p.add_argument("--segment-len", type=int, default=30)
     p.add_argument("--max-segments", type=int, default=None)
     p.add_argument("--realtime", action="store_true")
-    p.add_argument("--pump", action="store_true", help="not yet ported; raises")
+    p.add_argument("--pump", action="store_true",
+                   help="WAV only: ingest via the native runtime's background "
+                        "pump thread + SPSC ring (IO overlaps compute); "
+                        "excludes --resume (the pump streams from the start)")
     p.add_argument("--resume", action="store_true",
                    help="continue a WAV replay from the journaled offset")
     p.add_argument("--keypoint-mode", choices=["threshold", "corner"],
@@ -274,8 +323,6 @@ def main(argv=None) -> int:
                         "audio (accelerated-day replay / soak testing)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.pump:
-        raise NotImplementedError(f"--pump (the native WAV pump) {NOT_PORTED}")
     if args.start_time is not None and not args.wav:
         p.error("--start-time requires a positioned (WAV replay) source")
 
@@ -286,7 +333,11 @@ def main(argv=None) -> int:
         spec_out_dir=args.spec_out,
         keypoint_mode=args.keypoint_mode,
     )
-    if args.wav:
+    if args.wav and args.pump:
+        if args.resume:
+            p.error("--pump excludes --resume")
+        source = PumpSegmentSource(args.wav, cfg, realtime=args.realtime)
+    elif args.wav:
         start = 0
         if args.resume:
             start = OffsetJournal(args.csv_out, os.path.abspath(args.wav)).load()
@@ -312,6 +363,8 @@ def main(argv=None) -> int:
     finally:
         if isinstance(source, CommandSegmentSource):
             source.terminate()
+        elif isinstance(source, PumpSegmentSource):
+            source.close()
     return 0
 
 

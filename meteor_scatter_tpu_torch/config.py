@@ -1,16 +1,67 @@
-"""Configuration of the port's detectors and segment monitor.
+"""Typed configuration tree of the port.
 
-The port's own copy of the dataclasses it uses from
-`meteor_scatter_tpu/config.py` (the port imports nothing of the JAX
-package): same names, fields, defaults and band properties, so one
-configuration drives both packages.  Parameter names mirror the reference
-(`dsp/src/live/backend/aggregates.py:33-63`).
+The port's own copy of `meteor_scatter_tpu/config.py` (the port imports
+nothing of the JAX package): the same dataclasses with the same names,
+fields, defaults and band properties, and the same flat INI round trip
+(`to_ini` / `from_ini`), so one configuration file drives both packages
+and `to_ini` writes the same text.  Parameter names and defaults mirror the
+reference (`config.ini` + `config.py:31-58` for the webserver,
+`dsp/src/live/backend/aggregates.py:27-63` for the streaming pipeline,
+`meteor_detect_class/prime_detection.py:17-28` for the monitor): block
+0.2 s, sigma-factor 4, 120 s estimation window, 8 s averaging window, ...
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Tuple
+import configparser
+import dataclasses
+import io as _io
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class BandPowerConfig:
+    """Framed band-power extraction (reference: dsp/src/main.py:353-393).
+
+    ``n_fft`` here is the *effective* FFT length.  The reference CLI doubles
+    the user-supplied n_fft (`main.py:353`); the app layer in
+    :mod:`meteor_scatter_tpu_torch.apps.analyze` reproduces that doubling so that
+    configs written for the reference behave identically.
+    """
+
+    sample_rate: int = 6000
+    block_duration_sec: float = 0.2
+    n_fft: int = 1024
+    # (f_lo, f_hi) in Hz, inclusive on both ends like the reference masks
+    # (`main.py:382,386`:  freqs >= lo  &  freqs <= hi).
+    freq_band: Tuple[float, float] = (993.0, 1013.0)
+    noise_band: Tuple[float, float] = (690.0, 710.0)
+    # Power floor added before log10 (`main.py:383,387`).
+    power_floor: float = 1e-12
+
+    @property
+    def block_size(self) -> int:
+        return int(self.sample_rate * self.block_duration_sec)
+
+
+@dataclass(frozen=True)
+class AnalyzeConfig:
+    """Batch analyzer parameters (reference: dsp/src/main.py:207-229).
+
+    Same knobs as ``proc_wav_file`` keyword arguments.
+    """
+
+    band: BandPowerConfig = field(default_factory=BandPowerConfig)
+    threshold_std_factor: float = 4.0
+    flag_adaptive_threshold: bool = True
+    threshold_estimation_window_sec: float = 120.0
+    threshold_freeze_before_detection_sec: float = 3.0
+    threshold_freeze_after_detection_sec: float = 20.0
+    threshold_fixed_init_duration_sec: float = 10.0
+    # Fixed capacity of the on-device event buffer (the reference grows a
+    # Python list; static shapes require a cap — overflow is reported).
+    max_events: int = 4096
 
 
 @dataclass(frozen=True)
@@ -79,6 +130,24 @@ class SpecExportConfig:
 
 
 @dataclass(frozen=True)
+class ShardingConfig:
+    """Mesh layout for multi-chip execution (new; no reference equivalent —
+    the reference is single-process CPU, see SURVEY.md §2.6)."""
+
+    # Mesh axis names: stations/channels are purely data parallel; time
+    # shards a single long stream with halo exchange at the seams.
+    station_axis: str = "station"
+    time_axis: str = "time"
+    n_station_shards: int = 1
+    n_time_shards: int = 1
+    # Warm-up halo carried into each time shard so the adaptive threshold's
+    # rolling statistics converge before the shard's own samples begin
+    # (threshold_estimation_window_sec + freeze_after covers the reach of
+    # the reference's sequential recurrence, main.py:450-522).
+    warmup_halo_sec: float = 140.0
+
+
+@dataclass(frozen=True)
 class MonitorConfig:
     """Live segment monitor (reference: meteor_detect_class/prime_detection.py:17-28)."""
 
@@ -95,3 +164,116 @@ class MonitorConfig:
     csv_out_dir: str = "csv-out"
     spec_out_dir: str = "spec-out"
     save_interval_min: float = 59.8  # prime_detection.py:109
+
+
+@dataclass(frozen=True)
+class DashboardConfig:
+    """Web dashboard (reference: config.py:31-58 + config.ini)."""
+
+    debug: bool = False
+    schedule_interval_min: float = 2.0
+    csv_folder: str = "csv_files"
+    csv_storage_path: str = "final_dataframe.csv"
+    gauge_lower: float = 0.0
+    gauge_upper: float = 100.0
+    reload_interval_ms: int = 150000
+    slideshow_interval_ms: int = 10000
+    host: str = "0.0.0.0"
+    port: int = 5000
+
+
+# ---------------------------------------------------------------------------
+# INI round-trip
+# ---------------------------------------------------------------------------
+
+_SECTIONS = {
+    "bandpower": BandPowerConfig,
+    "analyze": AnalyzeConfig,
+    "detection": DetectionConfig,
+    "visualization": VisualizationConfig,
+    "spec_export": SpecExportConfig,
+    "sharding": ShardingConfig,
+    "monitor": MonitorConfig,
+    "dashboard": DashboardConfig,
+}
+
+
+@dataclass(frozen=True)
+class FrameworkConfig:
+    """Top-level config tree; one INI file covers every subsystem."""
+
+    bandpower: BandPowerConfig = field(default_factory=BandPowerConfig)
+    analyze: AnalyzeConfig = field(default_factory=AnalyzeConfig)
+    detection: DetectionConfig = field(default_factory=DetectionConfig)
+    visualization: VisualizationConfig = field(default_factory=VisualizationConfig)
+    spec_export: SpecExportConfig = field(default_factory=SpecExportConfig)
+    sharding: ShardingConfig = field(default_factory=ShardingConfig)
+    monitor: MonitorConfig = field(default_factory=MonitorConfig)
+    dashboard: DashboardConfig = field(default_factory=DashboardConfig)
+
+
+def _coerce(value: str, target):
+    """Typed coercion driven by the field's current value, mirroring the
+    fallback-driven coercion of the reference's `config.py:92-117`."""
+    if isinstance(target, bool):
+        return value.strip().lower() in ("1", "true", "yes", "on")
+    if isinstance(target, int) and not isinstance(target, bool):
+        return int(float(value))
+    if isinstance(target, float):
+        return float(value)
+    if isinstance(target, tuple):
+        parts = [p for p in value.replace("(", "").replace(")", "").split(",") if p.strip()]
+        return tuple(type(t)(float(p)) for p, t in zip(parts, target))
+    return value
+
+
+def to_ini(cfg: FrameworkConfig) -> str:
+    parser = configparser.ConfigParser()
+    for section in _SECTIONS:
+        sub = getattr(cfg, section)
+        parser[section] = {}
+        for f in dataclasses.fields(sub):
+            v = getattr(sub, f.name)
+            if isinstance(v, tuple):
+                v = ",".join(str(x) for x in v)
+            elif dataclasses.is_dataclass(v):
+                continue  # nested configs serialize via their own section
+            parser[section][f.name] = str(v)
+    buf = _io.StringIO()
+    parser.write(buf)
+    return buf.getvalue()
+
+
+def from_ini(text: str) -> FrameworkConfig:
+    parser = configparser.ConfigParser()
+    parser.read_string(text)
+    kwargs = {}
+    for section, cls in _SECTIONS.items():
+        defaults = cls() if cls is not AnalyzeConfig else AnalyzeConfig()
+        if section not in parser:
+            kwargs[section] = defaults
+            continue
+        sub_kwargs = {}
+        for f in dataclasses.fields(cls):
+            cur = getattr(defaults, f.name)
+            if dataclasses.is_dataclass(cur):
+                continue
+            if f.name in parser[section]:
+                sub_kwargs[f.name] = _coerce(parser[section][f.name], cur)
+        if cls is AnalyzeConfig and "bandpower" in parser:
+            sub_kwargs["band"] = kwargs.get("bandpower", BandPowerConfig())
+        kwargs[section] = cls(**sub_kwargs)
+    # analyze.band shares the [bandpower] section
+    if "bandpower" in kwargs and "analyze" in kwargs:
+        kwargs["analyze"] = dataclasses.replace(kwargs["analyze"], band=kwargs["bandpower"])
+    return FrameworkConfig(**kwargs)
+
+
+def load_config(path: str) -> FrameworkConfig:
+    with open(path, "r") as fh:
+        return from_ini(fh.read())
+
+
+def save_config(cfg: FrameworkConfig, path: str) -> None:
+    with open(path, "w") as fh:
+        fh.write(to_ini(cfg))

@@ -14,6 +14,7 @@ as on a GPU machine without JAX.
 import csv
 import datetime
 import os
+import re
 import struct
 import subprocess
 import sys
@@ -93,13 +94,18 @@ def test_fused_twin_equals_parallel(wav):
         assert arr.shape == (3000,) and np.isfinite(arr).all()
 
 
-def test_unported_outputs_raise(wav, tmp_path):
-    # --out-spec-dir is ported (tests/test_torch_monitor.py); --plot-dir
-    # still raises, before anything is written
-    with pytest.raises(NotImplementedError, match="--plot-dir.*not yet ported"):
-        tan.main([wav, "--device", "cpu", "--out-spec-dir", str(tmp_path / "spec"),
-                  "--plot-dir", str(tmp_path / "plots")])
-    assert not (tmp_path / "spec").exists() and not (tmp_path / "plots").exists()
+def test_unported_outputs_raise(wav, tmp_path, capsys):
+    # every output is ported now: one run writes the spectrogram PNGs and the
+    # debug plots (tests/test_torch_monitor.py and tests/test_torch_host_apps.py
+    # hold them against JAX)
+    spec, plots = tmp_path / "spec", tmp_path / "plots"
+    assert tan.main([wav, "--device", "cpu", "--out-spec-dir", str(spec),
+                     "--plot-dir", str(plots)]) == 0
+    out = capsys.readouterr().out
+    n = int(re.search(r"^Found (\d+) detections$", out, re.M).group(1))
+    assert n >= 10 and len(os.listdir(spec)) == n
+    assert sorted(os.listdir(plots)) == ["delta_threshold.png", "hist_db.png",
+                                         "hist_duration.png", "per_hour.png"]
 
 
 def test_cuda_requested_without_gpu_raises(wav, monkeypatch):
@@ -157,9 +163,10 @@ def test_jax_free_import_and_run(tmp_path):
     detector (welch and headless, its waterfall PNGs, and the episode-jump
     solvers ``--impl hop`` / ``jump``), the wideband front end (real and
     I/Q), the segment monitor and the multi-device dryrun (a virtual mesh of
-    8 CPU positions) run end to end on the CPU, and afterwards no module of
-    JAX or of the JAX package
-    ``meteor_scatter_tpu`` is loaded."""
+    8 CPU positions) run end to end on the CPU, and so do the host slice's
+    paths: the monitor's ``--pump``, the analyzer's ``--plot-dir``, the live
+    ``--ui`` (Agg), the merge and one dashboard request; afterwards no
+    module of JAX or of the JAX package ``meteor_scatter_tpu`` is loaded."""
     code = textwrap.dedent(
         """
         import contextlib, importlib, io, os, pkgutil, sys
@@ -182,13 +189,21 @@ def test_jax_free_import_and_run(tmp_path):
         spec = sys.argv[1] + "/spec"
         proc_wav_file(path, device="cpu", verbose=False, outfile_path=spec)
         assert os.listdir(spec) == ["spec_and_psd_40.00_41.00.png"], os.listdir(spec)
+        from meteor_scatter_tpu_torch.apps import analyze, merge
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert analyze.main([path, "--device", "cpu", "--plot-dir", sys.argv[1] + "/plots",
+                                 "--out-csv", sys.argv[1] + "/ev.csv"]) == 0
+            assert merge.main([sys.argv[1] + "/ev.csv", "--out-dir", sys.argv[1] + "/merged"]) == 0
+        assert sorted(os.listdir(sys.argv[1] + "/plots")) == [
+            "delta_threshold.png", "hist_db.png", "hist_duration.png"], os.listdir(sys.argv[1] + "/plots")
         y = rng.standard_normal(4000 * 40) * 0.05
         y[4000 * 20 : 4000 * 21] += 0.6 * np.sin(2 * np.pi * 1000.0 * np.arange(4000) / 4000)
         path = sys.argv[1] + "/live.wav"
         write_wav(path, 4000, np.round(y * 32768).astype(np.int16))
         wf = sys.argv[1] + "/wf"
         for extra in ([], ["--headless"], ["--spec-export-dir", wf], ["--impl", "hop"],
-                      ["--impl", "jump"]):
+                      ["--impl", "jump"], ["--ui", "--realtime-factor", "1e9", "--n-fft", "1024",
+                                           "--stop-sec", "24"]):
             out = io.StringIO()
             with contextlib.redirect_stdout(out):
                 assert live.main([path, "--device", "cpu", "--min-dur", "0.5", *extra]) == 0
@@ -217,6 +232,26 @@ def test_jax_free_import_and_run(tmp_path):
         assert out.getvalue().count("Critical bursts this segment") == 2, out.getvalue()
         assert len(os.listdir(sys.argv[1] + "/png")) >= 1
         assert "20260817.csv" in os.listdir(sys.argv[1] + "/csv")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert monitor.main(["--wav", path, "--pump", "--device", "cpu",
+                                 "--csv-out", sys.argv[1] + "/csv_pump", "--spec-out",
+                                 sys.argv[1] + "/png_pump", "--start-time", "2026-08-17T12:00:00"]) == 0
+        for d in ("csv", "png"):
+            names = sorted(os.listdir(sys.argv[1] + "/" + d))
+            assert names == sorted(os.listdir(sys.argv[1] + "/" + d + "_pump")), d
+            for n in names:
+                with open(f"{sys.argv[1]}/{d}/{n}", "rb") as a, open(f"{sys.argv[1]}/{d}_pump/{n}", "rb") as b:
+                    assert a.read() == b.read(), n
+        from meteor_scatter_tpu_torch.config import DashboardConfig
+        from meteor_scatter_tpu_torch.dashboard.app import DashboardApp
+        app = DashboardApp(DashboardConfig(csv_folder=sys.argv[1] + "/csv",
+                                           csv_storage_path=sys.argv[1] + "/final.csv"),
+                           static_dir=sys.argv[1] + "/static")
+        got = {}
+        body = b"".join(app({"REQUEST_METHOD": "GET", "PATH_INFO": "/api/dynamischer_inhalt"},
+                            lambda status, headers: got.update(status=status)))
+        assert got["status"] == "200 OK" and b"missing_days" in body, body
         from meteor_scatter_tpu_torch.parallel.dryrun import dryrun_multichip
         with contextlib.redirect_stdout(io.StringIO()):
             line = dryrun_multichip(8, devices=["cpu"] * 8)
@@ -228,7 +263,8 @@ def test_jax_free_import_and_run(tmp_path):
         print("JAX-FREE OK")
         """
     )
-    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               MPLBACKEND="Agg")
     proc = subprocess.run(
         [sys.executable, "-c", code, str(tmp_path)],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,

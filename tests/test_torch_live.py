@@ -104,19 +104,33 @@ def test_episode_impls_match_scan(wav, capsys, tmp_path, impl):
         (["--ui", "--spec-export-dir", "spec"], "--ui"),
     ],
 )
-def test_unported_options_raise(wav, tmp_path, extra, match):
+def test_unported_options_raise(wav, tmp_path, capsys, extra, match):
+    # --ui is ported: under Agg with pacing off it prints the event lines of
+    # a run without it (and with --spec-export-dir writes its PNGs too)
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
     extra = [str(tmp_path / a) if a == "spec" else a for a in extra]
-    with pytest.raises(NotImplementedError, match=f"{match}.*not yet ported"):
-        tlive.main([wav, "--device", "cpu", *extra])
-    assert not (tmp_path / "spec").exists()
+    args = [wav, "--device", "cpu", "--stop-sec", "24", "--n-fft", "1024", *ARGS]
+    assert tlive.main(args) == 0
+    plain = capsys.readouterr().out
+    assert tlive.main([*args, *extra, "--realtime-factor", "1e9"]) == 0
+    plt.close("all")
+    ui = capsys.readouterr().out
+    assert match in extra and EXTENT.findall(ui) == EXTENT.findall(plain)
+    assert len(EXTENT.findall(ui)) == 1
+    assert (tmp_path / "spec").exists() == ("--spec-export-dir" in extra)
 
 
 def test_session_rejects_ui_and_export_and_missing_gpu(monkeypatch):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tlive.LiveSession(DetectionConfig(), FS, vis=VisualizationConfig(enable_ui_plots=True),
-                          device="cpu")
-    # the spectrogram export is ported: a session takes it, and keeps the
-    # Welch front that fills its waterfall ring even when asked for headless
+    # the UI and the spectrogram export are ported: a session takes them, and
+    # keeps the Welch front that fills the view and the waterfall ring even
+    # when asked for headless
+    sess = tlive.LiveSession(DetectionConfig(), FS, vis=VisualizationConfig(enable_ui_plots=True),
+                             headless=True, device="cpu")
+    assert not sess.headless
     sess = tlive.LiveSession(DetectionConfig(), FS, spec=tlive.SpecExportConfig(output_dir="x"),
                              headless=True, device="cpu")
     assert not sess.headless and sess.wf_db == [] and sess.wf_win == 300

@@ -314,8 +314,11 @@ def test_command_source_reads_pcm_segments(tmp_path, monkeypatch):
 
 
 def test_unported_and_missing_gpu_raise(mon_wav, tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="--pump.*not yet ported"):
-        tmon.main(["--wav", mon_wav, "--pump", "--device", "cpu"])
+    # --pump is ported (tests/test_torch_host_apps.py); as in the JAX CLI it
+    # excludes --resume
+    with pytest.raises(SystemExit):
+        quiet(tmon.main, ["--wav", mon_wav, "--pump", "--resume", "--device", "cpu",
+                          "--csv-out", str(tmp_path / "p")])
     with pytest.raises(SystemExit):  # argparse: --start-time needs a WAV replay
         quiet(tmon.main, ["--command", "true", "--start-time", "2026-08-17T00:00:00",
                           "--device", "cpu", "--csv-out", str(tmp_path / "c")])
