@@ -110,6 +110,21 @@ non-zero (there is no CPU fallback):
    mesh against no mesh; ``init_multihost`` without settings and a
    world-size-1 NCCL group's heartbeat.  Its K3 launches are printed on its
    line and not added to the kernel records' counts.
+15. e2e_multiproc — the multi-device layer on a process group: two spawned
+   processes share the card through a gloo group (a ``file://`` store; every
+   transfer staged through the host), each owning ``cuda:0`` twice.  (a)
+   BASELINE config 5 (the stations fixture) through
+   ``sharded_stream_process(front="bins", impl="fused")`` on a 2 x 2 mesh
+   spanning both, K3 launched twice in each process (counted there and
+   added to the kernel records), every state, event and threshold leaf
+   bit-equal to the unsharded batched ``stream_process``; (b) the at-spec
+   I/Q capture flat through ``sharded_channelize_iq`` on 1 x 4 (halos across
+   the process seam) against the unsharded bank; (c)
+   ``sharded_detect_adaptive`` on 1 x 4 over the batch day's first 20
+   minutes, the mask equal to one process's; each with ms in every process, the
+   same call on one process's virtual mesh, the bytes staged and the
+   compute mode (not ``Default``: (a)-(c) under ``not_run``); (d) (a) over
+   16 stations on a world-size-1 NCCL group (K3 4 times, bit-equal).
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after.  The last three lines are the ``nvidia-smi`` line, one
@@ -2014,6 +2029,337 @@ def phase_e2e_sharded(tmp: str, iq: dict) -> dict:
     return out
 
 
+# e2e_multiproc: BASELINE config 5 on a mesh spanning two processes of the
+# one card.  Two ranks of a gloo group (NCCL refuses two ranks on one GPU),
+# each owning the card twice; the joins are bounded so a hung collective
+# fails the phase instead of the call.
+MULTIPROC_RANKS = 2
+MULTIPROC_JOIN_S = 900
+MULTIPROC_REPS = 5
+MULTIPROC_NCCL_STATIONS = 16  # (d): the stations fixture cut to 16 stations
+# (c): the batch day's first 20 minutes (6 000 blocks, 1 500 a shard): the
+# warm-started scan is a host loop of ~0.3-0.7 ms a block (e2e_sharded's
+# scan_ms), so the whole day's 432 000 blocks would take minutes a call
+MULTIPROC_DELTA_MINUTES = 20
+
+
+def compute_mode() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout
+    return out.strip().splitlines()[0]
+
+
+def batch_delta_head(x) -> np.ndarray:
+    """The batch day's first ``MULTIPROC_DELTA_MINUTES`` as a (1, B)
+    delta-dB series (the analyzer's band power), on the host."""
+    from meteor_scatter_tpu_torch.ops import bandpower as bp
+
+    head = x[: FS * 60 * MULTIPROC_DELTA_MINUTES]
+    return bp.delta_power_db(head, FS, 1024, int(FS * BLOCK_SEC), (993.0, 1013.0),
+                             (690.0, 710.0))[2][None].cpu().numpy()
+
+
+def multiproc_child(rank: int, spec: dict) -> None:
+    """One process of ``e2e_multiproc``: rank ``rank`` of a gloo group of
+    two through a file store, owning ``[spec["card"]] * 2``.  Runs (a) the
+    stations fixture on a 2 x 2 mesh, (b) the at-spec I/Q bank and (c) the
+    warm-started detection on 1 x 4 meshes, all spanning both processes,
+    and writes its global results (``rank<r>.npz``) and its counts, bytes
+    and times (``rank<r>.json``) to ``spec["dir"]``."""
+    import torch
+    import torch.distributed as dist
+
+    from meteor_scatter_tpu_torch.models import streaming as st
+    from meteor_scatter_tpu_torch.parallel import distributed as pdist
+    from meteor_scatter_tpu_torch.parallel.mesh import make_mesh
+    from meteor_scatter_tpu_torch.parallel.sharded import (
+        sharded_channelize_iq,
+        sharded_detect_adaptive,
+        sharded_stream_process,
+    )
+
+    d, card = spec["dir"], torch.device(spec["card"])
+    torch.cuda.set_device(card)
+    pdist.init_multihost(f"file://{d}/store", MULTIPROC_RANKS, rank, device="cuda",
+                         backend="gloo")
+    try:
+        out, arrays = {"rank": rank}, {}
+
+        def measured(mesh, fn):
+            """The first call's results, its launches and bytes, then its ms."""
+            torch.cuda.synchronize()
+            zero_launch_counts()
+            mesh.link.staged_bytes = mesh.link.wire_bytes = 0
+            res = fn()
+            torch.cuda.synchronize()
+            rec = {"launches": launch_counts(), "staged_bytes": mesh.link.staged_bytes,
+                   "wire_bytes": mesh.link.wire_bytes, "transport": mesh.transport,
+                   "owners": mesh.owners}
+            rec["ms"] = cuda_ms(fn, warmup=1, reps=MULTIPROC_REPS)
+            return res, rec
+
+        # --- (a) BASELINE config 5: 64 stations x 600 s, 2 x 2 mesh, K3 ---
+        cfg = live_config()
+        scfg = st.StreamConfig.from_config(cfg)
+        x = torch.from_numpy(np.load(os.path.join(d, "stations.npy"))).to(card)
+        # the bins front's projection is numpy's eigh on the host, cached per
+        # process: made one process at a time, as two processes' BLAS threads
+        # at once oversubscribe the host
+        for r in range(MULTIPROC_RANKS):
+            if r == rank:
+                st.stream_front_headless(cfg, x[:1, :1], LIVE_FS)
+            dist.barrier()
+        st0 = st.stream_init_batch(scfg, x.shape[0], card)
+        mesh = make_mesh(2, 2, [card] * 2)
+        if mesh.transport != spec["transport"]:
+            raise AssertionError(f"transport {mesh.transport}, expected {spec['transport']}")
+        (state, ev, dg), out["a"] = measured(mesh, lambda: sharded_stream_process(
+            cfg, st0, x, LIVE_FS, mesh, front="bins", impl="fused"))
+        arrays.update({f"a.state.{f}": v for f, v in zip(state._fields, state)})
+        arrays.update({f"a.events.{f}": v for f, v in zip(ev._fields, ev)})
+        arrays.update({f"a.{k}": dg[k] for k in ("threshold", "over_noise")})
+        del x, dg
+
+        # --- (b) BASELINE config 4's bank at spec, flat, halos on 1 x 4 ---
+        with open(os.path.join(d, "iq.json")) as f:
+            centers = np.asarray(json.load(f)["centers"])
+        x_re = torch.from_numpy(np.load(os.path.join(d, "iq_re.npy"))).to(card)
+        x_im = torch.from_numpy(np.load(os.path.join(d, "iq_im.npy"))).to(card)
+        mesh14 = make_mesh(1, 4, [card] * 2)
+        bank = (IQ_BANDWIDTH, IQ_DECIM, IQ_NUMTAPS)
+        (y_re, y_im), out["b"] = measured(mesh14, lambda: sharded_channelize_iq(
+            x_re, x_im, mesh14, int(FRONTEND_FS), centers, *bank))
+        arrays.update({"b.y_re": y_re, "b.y_im": y_im})
+        del x_re, x_im
+        torch.cuda.empty_cache()
+
+        # --- (c) the warm-started detection over the batch day's head, 1 x 4 ---
+        delta = torch.from_numpy(np.load(os.path.join(d, "delta.npy"))).to(card)
+        (thr, above), out["c"] = measured(mesh14, lambda: sharded_detect_adaptive(
+            delta, mesh14, **SOLVER))
+        arrays.update({"c.thresholds": thr, "c.above": above})
+
+        loaded = port_modules_loaded_from_jax()
+        if loaded:
+            raise AssertionError(f"a child loaded JAX or the JAX package: {loaded[:5]}")
+        np.savez(os.path.join(d, f"rank{rank}.npz"),
+                 **{k: v.cpu().numpy() for k, v in arrays.items()})
+        with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_multiproc(d: str) -> list:
+    """The two children of ``e2e_multiproc``; a child that fails fails the
+    phase (``ProcessRaisedException``), and one that outlasts the join
+    bound is killed and fails it too.  Returns each rank's (arrays, record)."""
+    import torch.multiprocessing as mp
+
+    spec = {"dir": d, "card": "cuda:0", "transport": "gloo-host-staged"}
+    ctx = mp.spawn(multiproc_child, args=(spec,), nprocs=MULTIPROC_RANKS, join=False)
+    deadline = time.monotonic() + MULTIPROC_JOIN_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"e2e_multiproc: the children ran past {MULTIPROC_JOIN_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(timeout=30)
+    ranks = []
+    for r in range(MULTIPROC_RANKS):
+        with np.load(os.path.join(d, f"rank{r}.npz")) as z:
+            arrays = dict(z)
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            ranks.append((arrays, json.load(f)))
+    return ranks
+
+
+def phase_e2e_multiproc(tmp: str, iq: dict, day_delta: np.ndarray) -> dict:
+    """The multi-device layer on a process group: a mesh that spans two
+    processes sharing the card (gloo, staged through the host), each owning
+    ``cuda:0`` twice.  (a) BASELINE config 5 (:func:`stations_fixture`)
+    through ``sharded_stream_process(front="bins", impl="fused")`` on 2 x 2
+    (K3 once per owned position, 2 in each process), bit-equal to the
+    unsharded batched ``stream_process`` here; (b) the at-spec I/Q bank
+    flat through ``sharded_channelize_iq`` on 1 x 4 (halos across the
+    process seam and a local seam) within ``IQ_SHARD_REL_TOL`` of the
+    unsharded bank; (c) ``sharded_detect_adaptive`` on 1 x 4 over the batch
+    day's first 20 minutes, the mask equal to the single-process sharded
+    one;
+    (d) a world-size-1 NCCL group driving (a) over 16 stations.  Each with
+    its time in the children beside the same call on one process's virtual
+    mesh.  Without the ``Default`` compute mode (a)-(c) go under
+    ``not_run``; (d) runs."""
+    import torch
+    import torch.distributed as dist
+
+    from meteor_scatter_tpu_torch.models import streaming as st
+    from meteor_scatter_tpu_torch.ops import fir
+    from meteor_scatter_tpu_torch.ops.kernels import stream_kernel as sk
+    from meteor_scatter_tpu_torch.parallel.mesh import make_mesh
+    from meteor_scatter_tpu_torch.parallel.sharded import (
+        sharded_channelize_iq,
+        sharded_detect_adaptive,
+        sharded_stream_process,
+    )
+
+    card = f"{DEVICE}:{torch.cuda.current_device()}"
+    mode = compute_mode()
+    out = {"phase": "e2e_multiproc", "nvidia_smi": nvidia_smi_line(), "compute_mode": mode,
+           "note": "two processes share one card through gloo, every transfer staged through "
+                   "the host: the times measure the transport and the bookkeeping of a mesh "
+                   "that spans processes, not scaling", "not_run": []}
+    cfg = live_config()
+    scfg = st.StreamConfig.from_config(cfg)
+    x, _, _ = stations_fixture()
+    st0 = st.stream_init_batch(scfg, STATIONS, DEVICE)
+    fs = int(FRONTEND_FS)
+    bank = (IQ_BANDWIDTH, IQ_DECIM, IQ_NUMTAPS)
+    k3_children = 0
+    if mode == "Default":
+        d = os.path.join(tmp, "multiproc")
+        os.makedirs(d)
+        t0 = time.perf_counter()
+        np.save(os.path.join(d, "stations.npy"), x.cpu().numpy())
+        np.save(os.path.join(d, "iq_re.npy"), iq["x_re"])
+        np.save(os.path.join(d, "iq_im.npy"), iq["x_im"])
+        np.save(os.path.join(d, "delta.npy"), day_delta)
+        with open(os.path.join(d, "iq.json"), "w") as f:
+            json.dump({"centers": iq["centers"].tolist()}, f)
+        t1 = time.perf_counter()
+        ranks = spawn_multiproc(d)
+        out["inputs_to_files_s"], out["children_wall_s"] = t1 - t0, time.perf_counter() - t1
+        recs = [rec for _, rec in ranks]
+
+        # (a) against the unsharded batched solve, bit for bit
+        state_u, ev_u, dg_u = st.stream_process(cfg, st0, x, LIVE_FS, front="bins", impl="fused")
+        want = {f"a.state.{f}": v for f, v in zip(state_u._fields, state_u)}
+        want.update({f"a.events.{f}": v for f, v in zip(ev_u._fields, ev_u)})
+        want.update({f"a.{k}": dg_u[k] for k in ("threshold", "over_noise")})
+        unequal = sorted({k for arrays, _ in ranks for k, v in want.items()
+                          if not bits_equal(torch.from_numpy(arrays[k]), v.cpu())})
+        launches = [rec["a"]["launches"] for rec in recs]
+        if unequal or any(ln != {"adaptive_solver": 0, "bandpower": 0, "stream_machine": 2}
+                          for ln in launches) or bool(ev_u.overflow.any()):
+            raise AssertionError(f"multiproc stations: leaves not bit-equal to the unsharded "
+                                 f"solve {unequal[:6]}, launches {launches}")
+        k3_children = sum(ln["stream_machine"] for ln in launches)
+        mesh22 = make_mesh(2, 2, [card] * 4)
+        out["stations"] = {
+            "mesh": [2, 2], "processes": MULTIPROC_RANKS, "owners": recs[0]["a"]["owners"],
+            "transport": recs[0]["a"]["transport"], "stations": STATIONS,
+            "k3_launches_per_process": [ln["stream_machine"] for ln in launches],
+            "k3_shape": [int(dg_u["threshold"].shape[1]), STATIONS // 2],
+            "events": int(ev_u.count.sum()), "bit_equal_unsharded": True,
+            "ms_per_process": [rec["a"]["ms"] for rec in recs],
+            "staged_bytes_per_call": [rec["a"]["staged_bytes"] for rec in recs],
+            "wire_bytes_per_call": [rec["a"]["wire_bytes"] for rec in recs],
+            "single_process_virtual_ms": cuda_ms(lambda: sharded_stream_process(
+                cfg, st0, x, LIVE_FS, mesh22, front="bins", impl="fused"), warmup=1,
+                reps=MULTIPROC_REPS),
+            "unsharded_ms": cuda_ms(lambda: st.stream_process(
+                cfg, st0, x, LIVE_FS, front="bins", impl="fused"), warmup=1, reps=MULTIPROC_REPS),
+        }
+        del state_u, ev_u, dg_u
+
+        # (b) against the unsharded bank, within the bank's tolerance
+        stacked = np.stack([iq["x_re"], iq["x_im"]])
+        plan, tables = fir.channel_bank_plan(stacked.shape[-1], fs, iq["centers"], *bank,
+                                             device=DEVICE)
+        y_u = fir.channelize_iq_frames(torch.from_numpy(fir.frame_capture_host(stacked, plan))
+                                       .to(DEVICE), tables, plan)
+        del stacked
+        rms = math.sqrt(float(sum((y * y).mean() for y in y_u)) / 2)
+        errs = [max(float((torch.from_numpy(arrays[k]).to(DEVICE) - y).abs().max())
+                    for k, y in zip(("b.y_re", "b.y_im"), y_u)) for arrays, _ in ranks]
+        del y_u
+        x_re = torch.from_numpy(iq["x_re"]).to(DEVICE)
+        x_im = torch.from_numpy(iq["x_im"]).to(DEVICE)
+        mesh14 = make_mesh(1, 4, [card] * 4)
+        y_v = sharded_channelize_iq(x_re, x_im, mesh14, fs, iq["centers"], *bank)
+        same_v = all(bits_equal(torch.from_numpy(arrays[k]), y.cpu())
+                     for arrays, _ in ranks for k, y in zip(("b.y_re", "b.y_im"), y_v))
+        del y_v
+        if not max(errs) <= IQ_SHARD_REL_TOL * rms:
+            raise AssertionError(f"multiproc I/Q bank: max |sharded - unsharded| {errs} > "
+                                 f"{IQ_SHARD_REL_TOL} x RMS {rms}")
+        out["frontend_iq"] = {
+            "mesh": [1, 4], "owners": recs[0]["b"]["owners"], "samples": int(iq["x_re"].size),
+            "bank_max_abs_err": errs, "bank_rms": rms, "bank_rel_tol": IQ_SHARD_REL_TOL,
+            "bit_equal_single_process_virtual": same_v,
+            "ms_per_process": [rec["b"]["ms"] for rec in recs],
+            "staged_bytes_per_call": [rec["b"]["staged_bytes"] for rec in recs],
+            "wire_bytes_per_call": [rec["b"]["wire_bytes"] for rec in recs],
+            "single_process_virtual_ms": cuda_ms(lambda: sharded_channelize_iq(
+                x_re, x_im, mesh14, fs, iq["centers"], *bank), warmup=1, reps=MULTIPROC_REPS),
+        }
+        del x_re, x_im
+        torch.cuda.empty_cache()
+
+        # (c) against the same call on one process's virtual 1 x 4 mesh
+        delta = torch.from_numpy(day_delta).to(DEVICE)
+        thr_v, above_v = sharded_detect_adaptive(delta, mesh14, **SOLVER)
+        mask_equal = all(bits_equal(torch.from_numpy(arrays["c.above"]), above_v.cpu())
+                         for arrays, _ in ranks)
+        thr_equal = all(bits_equal(torch.from_numpy(arrays["c.thresholds"]), thr_v.cpu())
+                        for arrays, _ in ranks)
+        if not mask_equal:
+            raise AssertionError("multiproc warm-started detection: the mask differs from the "
+                                 "single-process sharded mask")
+        out["detect_adaptive"] = {
+            "mesh": [1, 4], "blocks": int(delta.shape[1]), "above": int(above_v.sum()),
+            "mask_bit_equal_single_process": True, "thresholds_bit_equal": thr_equal,
+            "ms_per_process": [rec["c"]["ms"] for rec in recs],
+            "staged_bytes_per_call": [rec["c"]["staged_bytes"] for rec in recs],
+            "wire_bytes_per_call": [rec["c"]["wire_bytes"] for rec in recs],
+            "single_process_virtual_ms": cuda_ms(lambda: sharded_detect_adaptive(
+                delta, mesh14, **SOLVER), warmup=1, reps=MULTIPROC_REPS),
+        }
+    else:
+        out["not_run"] += [{"path": p, "reason": f"compute mode {mode!r}, not 'Default': two "
+                                                 f"processes cannot share the card"}
+                           for p in ("stations 2 x 2", "frontend_iq 1 x 4", "detect_adaptive 1 x 4")]
+
+    # --- (d) the process-group path on a world-size-1 NCCL group ---
+    xs = x[:MULTIPROC_NCCL_STATIONS]
+    st_s = st.stream_init_batch(scfg, MULTIPROC_NCCL_STATIONS, DEVICE)
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'nccl_mp_store')}",
+                            world_size=1, rank=0, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh(2, 2, [card] * 4)
+
+        def nccl_call():
+            return sharded_stream_process(cfg, st_s, xs, LIVE_FS, mesh, front="bins", impl="fused")
+
+        torch.cuda.synchronize()
+        sk.launches = 0
+        state_n, ev_n, dg_n = nccl_call()
+        torch.cuda.synchronize()
+        k3_d, transport = sk.launches, mesh.transport
+        nccl_ms = cuda_ms(nccl_call, warmup=1, reps=MULTIPROC_REPS)
+    finally:
+        dist.destroy_process_group()
+    state_u, ev_u, dg_u = st.stream_process(cfg, st_s, xs, LIVE_FS, front="bins", impl="fused")
+    same = all(bits_equal(a, b) for a, b in zip((*state_n, *ev_n, dg_n["threshold"]),
+                                                (*state_u, *ev_u, dg_u["threshold"])))
+    if transport != "nccl" or k3_d != 4 or not same:
+        raise AssertionError(f"NCCL world 1: transport {transport}, K3 {k3_d} (expected 4), "
+                             f"bit-equal to unsharded {same}")
+    out["nccl_world_1"] = {"mesh": [2, 2], "stations": MULTIPROC_NCCL_STATIONS,
+                           "transport": transport, "k3_launches": k3_d,
+                           "bit_equal_unsharded": True, "ms": nccl_ms}
+    out["k3_launches_children"] = k3_children
+    del x, xs
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
 def cpu_solver_ms(scfg, on, pm) -> dict:
     """Median wall ms of the scan, jump and hop on CPU copies of the levels
     ``on`` / ``pm`` (one series ``(n,)`` or a batch ``(C, n)``) from a
@@ -2292,6 +2638,7 @@ def main() -> int:
             x = analyzer_day(tmp)
             records["bandpower"] = phase_kernel_k2(x)
             e2e_bp = phase_e2e_bandpower(x)
+            day_delta = batch_delta_head(x)
             del x
             torch.cuda.empty_cache()
             e2e_live = phase_e2e_live(tmp)
@@ -2306,13 +2653,15 @@ def main() -> int:
             phase_e2e_monitor(tmp)
             phase_e2e_host(tmp, host_inputs)
             phase_e2e_sharded(tmp, iq)
+            e2e_mp = phase_e2e_multiproc(tmp, iq, day_delta)
         del iq
     loaded = port_modules_loaded_from_jax()
     if loaded:
         raise AssertionError(f"the port loaded JAX or the JAX package: {loaded[:5]}")
 
     launches = {"adaptive_solver": e2e["launches"], "bandpower": e2e_bp["launches"],
-                "stream_machine": e2e_live["launches"] + e2e_st["launches"] + e2e_fiq["launches"]}
+                "stream_machine": e2e_live["launches"] + e2e_st["launches"] + e2e_fiq["launches"]
+                + e2e_mp["k3_launches_children"]}
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(nvidia_smi_line())
     emit({"kernels": [{"name": name, **KERNELS[name], "launches": launches[name], **records[name]}

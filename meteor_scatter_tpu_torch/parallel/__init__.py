@@ -13,12 +13,25 @@ sequential CPU process; the scaling model follows BASELINE configs 3-5:
 
 One process drives a grid of devices (:mod:`~meteor_scatter_tpu_torch.parallel.mesh`),
 which may repeat a device: a virtual mesh on one card or on the CPU.
-:mod:`~meteor_scatter_tpu_torch.parallel.distributed` holds the
-multi-process runtime on ``torch.distributed``.
+Under a process group the grid spans processes, each holding its own
+positions; :mod:`~meteor_scatter_tpu_torch.parallel.distributed` holds the
+multi-process runtime on ``torch.distributed`` and the transport between
+processes (NCCL, gloo, or gloo staged through the host).
 """
 
+from meteor_scatter_tpu_torch.parallel.distributed import (  # noqa: F401
+    init_multihost,
+    process_count,
+    process_index,
+    row_group,
+    transport_for,
+)
 from meteor_scatter_tpu_torch.parallel.mesh import make_mesh, station_time_specs  # noqa: F401
-from meteor_scatter_tpu_torch.parallel.halo import halo_exchange  # noqa: F401
+from meteor_scatter_tpu_torch.parallel.halo import (  # noqa: F401
+    halo_exchange,
+    time_all_gather,
+    time_psum,
+)
 from meteor_scatter_tpu_torch.parallel.sharded import (  # noqa: F401
     sharded_channelize_iq,
     sharded_channelize_iq_frames,

@@ -9,15 +9,25 @@ On the CPU (a virtual mesh of 8 CPU positions)::
 and on one card (``cuda:0`` repeated 8 times)::
 
     python -m meteor_scatter_tpu_torch.parallel.dryrun
+
+Across processes the 8 positions split over the group (every process
+checks the global results), e.g. two gloo processes on the CPU::
+
+    torchrun --nproc-per-node 2 -m meteor_scatter_tpu_torch.parallel.dryrun --device cpu
+
+(``torchrun`` sets ``MASTER_ADDR`` / ``MASTER_PORT`` / ``WORLD_SIZE`` /
+``RANK``; the group is NCCL for ``--device cuda``, gloo for the CPU).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from meteor_scatter_tpu_torch.config import DetectionConfig
 from meteor_scatter_tpu_torch.device import DeviceLike
@@ -33,6 +43,7 @@ from meteor_scatter_tpu_torch.ops.fir import (
     firwin_bandpass,
     frame_capture_sharded_host,
 )
+from meteor_scatter_tpu_torch.parallel.distributed import init_multihost, process_count
 from meteor_scatter_tpu_torch.parallel.mesh import make_mesh
 from meteor_scatter_tpu_torch.parallel.sharded import (
     sharded_channelize_iq,
@@ -69,8 +80,10 @@ def dryrun_multichip(n_devices: int, devices: Optional[Sequence[DeviceLike]] = N
     the seam merge see real detections, and assert the exact per-channel
     event lists; then the time-sharded streaming machine and the sharded
     IQ bank against their unsharded forms.  ``devices`` (default: every
-    CUDA device) may repeat a device.  Prints and returns one summary
-    line; any mismatch raises."""
+    CUDA device) may repeat a device; under a process group they are this
+    process's, ``n_devices`` counts the whole group's, and every process
+    checks the global results.  Prints and returns one summary line; any
+    mismatch raises."""
     n_station = 2 if n_devices % 2 == 0 and n_devices > 1 else 1
     n_time = n_devices // n_station
     mesh = make_mesh(n_station=n_station, n_time=n_time, devices=devices)
@@ -248,7 +261,15 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda",
                    help="the device each of the 8 mesh positions repeats: cuda (default) or cpu")
     args = p.parse_args(argv)
-    dryrun_multichip(8, devices=[args.device] * 8)
+    if args.device == "cuda" and "LOCAL_RANK" in os.environ:
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    init_multihost(device=args.device)
+    try:
+        per = 8 // process_count()
+        dryrun_multichip(per * process_count(), devices=[args.device] * per)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     return 0
 
 

@@ -6,7 +6,13 @@ tensor, splits it over the mesh (:func:`~meteor_scatter_tpu_torch.parallel.mesh.
 runs every mesh position's share on that position's device, and returns
 global tensors on the mesh's first device with the shapes, dtypes and order
 of the JAX outputs.  Data moves between positions only through the three
-row operations of :mod:`meteor_scatter_tpu_torch.parallel.halo`.
+row operations of :mod:`meteor_scatter_tpu_torch.parallel.halo` and
+:func:`~meteor_scatter_tpu_torch.parallel.mesh.unshard`.
+
+On a mesh that spans processes every process calls the function with the
+same arguments (the global tensor whole), computes its own positions'
+shares, and gets the same global results as one process driving the
+whole mesh.
 
 Division of labour (as the JAX layer):
 
@@ -58,20 +64,28 @@ ST_ = (STATION_AXIS, TIME_AXIS, None)
 S_ = (STATION_AXIS, None)
 
 
-def _local(grid, fn):
-    """``fn(local)`` at every position; a tuple result becomes a tuple of
-    grids."""
-    out = [[fn(a) for a in row] for row in grid]
-    if isinstance(out[0][0], tuple):
-        return tuple([[cell[j] for cell in row] for row in out] for j in range(len(out[0][0])))
-    return out
+def _each(row, fn):
+    """``fn(a)`` at every position of a row that this process holds (None
+    elsewhere)."""
+    return [None if a is None else fn(a) for a in row]
+
+
+def _local(grid, fn, n_out: int = 0):
+    """``fn(local)`` at every position of this process (None elsewhere);
+    with ``n_out``, ``fn`` returns a tuple and the result is a tuple of
+    ``n_out`` grids."""
+    out = [_each(row, fn) for row in grid]
+    if not n_out:
+        return out
+    return tuple([_each(row, lambda c: c[j]) for row in out] for j in range(n_out))
 
 
 def _on_devices(mesh: Mesh, *arrays: np.ndarray) -> dict:
-    """Each numpy array as a tensor on every distinct device of the mesh
-    (once per device: positions of a virtual mesh share one copy)."""
+    """Each numpy array as a tensor on every distinct device of this
+    process's positions (once per device: positions of a virtual mesh
+    share one copy)."""
     return {dev: tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays)
-            for dev in {d for _, _, d in mesh.positions()}}
+            for dev in {d for _, _, d in mesh.local_positions()}}
 
 
 def sharded_delta_power(
@@ -98,19 +112,22 @@ def sharded_delta_power(
         band, noise = band_power_db(frames, proj[xl.device][0], slices, power_floor)
         return band, noise, band - noise
 
-    return tuple(unshard(g, mesh, ST) for g in _local(shard(x, mesh, ST), local))
+    return tuple(unshard(g, mesh, ST) for g in _local(shard(x, mesh, ST), local, 3))
 
 
-def _global_stats(row):
+def _global_stats(row, mesh: Mesh, s: int):
     """Per-channel (mean, population std) of a row's whole series, from the
     per-shard sums and sums of squares summed over the row (the JAX layer's
-    ``psum`` form), at every position."""
-    s = time_psum([dl.sum(-1) for dl in row])
-    s2 = time_psum([(dl * dl).sum(-1) for dl in row])
-    n = time_psum([torch.tensor(float(dl.shape[-1]), dtype=dl.dtype, device=dl.device)
-                   for dl in row])
+    ``psum`` form), at every position of this process (None elsewhere)."""
+    sums = time_psum(_each(row, lambda dl: dl.sum(-1)), mesh, s)
+    sums2 = time_psum(_each(row, lambda dl: (dl * dl).sum(-1)), mesh, s)
+    n = time_psum(_each(row, lambda dl: torch.tensor(float(dl.shape[-1]), dtype=dl.dtype,
+                                                      device=dl.device)), mesh, s)
     out = []
-    for sk, s2k, nk in zip(s, s2, n):
+    for sk, s2k, nk in zip(sums, sums2, n):
+        if sk is None:
+            out.append(None)
+            continue
         mean = sk / nk
         out.append((mean, torch.sqrt(torch.clamp(s2k / nk - mean * mean, min=0))))
     return out
@@ -124,9 +141,14 @@ def sharded_detect_fixed(
     """Per-channel global threshold from the sums over the time row;
     returns (above mask (C, B), per-channel thresholds (C,))."""
     above, thr = [], []
-    for row in shard(delta, mesh, ST):
+    for s, row in enumerate(shard(delta, mesh, ST)):
         a_row, t_row = [], []
-        for dl, (mean, std) in zip(row, _global_stats(row)):
+        for dl, stats in zip(row, _global_stats(row, mesh, s)):
+            if dl is None:
+                a_row.append(None)
+                t_row.append(None)
+                continue
+            mean, std = stats
             t = mean + threshold_std_factor * std
             a_row.append(dl > t[:, None])
             t_row.append(t)
@@ -187,11 +209,14 @@ def sharded_detect_adaptive(
     )
 
     thr_grid, above_grid = [], []
-    for row in shard(delta, mesh, ST):
-        stats = _global_stats(row)
-        haloed = halo_exchange(row, halo_blocks, 0)  # (C_loc, halo + B_loc) each
-        t_row, a_row = [], []
-        for k, (dl, hl, (g_mean, g_std)) in enumerate(zip(row, haloed, stats)):
+    for s, row in enumerate(shard(delta, mesh, ST)):
+        stats = _global_stats(row, mesh, s)
+        haloed = halo_exchange(row, halo_blocks, 0, mesh, s)  # (C_loc, halo + B_loc) each
+        t_row, a_row = [None] * n_time, [None] * n_time
+        for k, (dl, hl, st) in enumerate(zip(row, haloed, stats)):
+            if dl is None:
+                continue
+            g_mean, g_std = st
             c_loc = dl.shape[0]
             dev, dtype = dl.device, dl.dtype
             i0 = k * b_loc - warmup_blocks
@@ -216,8 +241,8 @@ def sharded_detect_adaptive(
             thr, above, _ = adaptive_thresholds(
                 replay, **kw, init_carry=init_carry, global_stats=(g_mean, g_std)
             )
-            t_row.append(thr[:, warmup_blocks:])
-            a_row.append(above[:, warmup_blocks:])
+            t_row[k] = thr[:, warmup_blocks:]
+            a_row[k] = above[:, warmup_blocks:]
         thr_grid.append(t_row)
         above_grid.append(a_row)
     return unshard(thr_grid, mesh, ST), unshard(above_grid, mesh, ST)
@@ -247,8 +272,8 @@ def sharded_detect_adaptive_exact(
         freeze_blocks_after=freeze_blocks_after,
         fixed_threshold_blocks=fixed_threshold_blocks,
     )
-    grid = [time_all_gather(row, 1) for row in shard(delta, mesh, ST)]
-    thr, above = _local(grid, lambda full: adaptive_thresholds_parallel(full, **kw))
+    grid = [time_all_gather(row, 1, mesh, s) for s, row in enumerate(shard(delta, mesh, ST))]
+    thr, above = _local(grid, lambda full: adaptive_thresholds_parallel(full, **kw), 2)
     return unshard(thr, mesh, S_), unshard(above, mesh, S_)
 
 
@@ -297,15 +322,21 @@ def sharded_spectrogram_psd(
         )
     win = hann_periodic(nperseg)
 
+    # shards own different frame counts: each pads its frames to the largest
+    # count (a static capacity), so every position's tensor has one shape
+    cap = max(nf_k)
+
+    def local_psd(hl, k):
+        psd = _stft_psd(hl[..., offs[k] : offs[k] + nf_k[k] * hop + (nperseg - hop)],
+                        fs, nperseg, noverlap, nperseg, win, detrend_constant=True)
+        return torch.cat([psd, psd.new_zeros((psd.shape[0], cap - nf_k[k], psd.shape[2]))], 1)
+
     grid = []
-    for row in shard(x, mesh, ST):
-        haloed = halo_exchange([xl.to(torch.float32) for xl in row], 0, right_halo)
-        grid.append([
-            _stft_psd(hl[..., offs[k] : offs[k] + nf_k[k] * hop + (nperseg - hop)],
-                      fs, nperseg, noverlap, nperseg, win, detrend_constant=True)
-            for k, hl in enumerate(haloed)
-        ])
-    return unshard(grid, mesh, ST_)
+    for s, row in enumerate(shard(x, mesh, ST)):
+        haloed = halo_exchange(_each(row, lambda xl: xl.to(torch.float32)), 0, right_halo, mesh, s)
+        grid.append([None if hl is None else local_psd(hl, k) for k, hl in enumerate(haloed)])
+    keep = torch.cat([torch.arange(k * cap, k * cap + nf_k[k]) for k in range(n_time)])
+    return unshard(grid, mesh, ST_)[:, keep.to(mesh.device)]
 
 
 def sharded_fir_filter(
@@ -320,9 +351,9 @@ def sharded_fir_filter(
     lh = (t - 1) // 2
     rh = t - 1 - lh
     grid = []
-    for row in shard(x, mesh, ST):
-        haloed = halo_exchange([xl.to(torch.float32) for xl in row], lh, rh)
-        grid.append([fir_filter(hl, taps, mode="valid") for hl in haloed])
+    for s, row in enumerate(shard(x, mesh, ST)):
+        haloed = halo_exchange(_each(row, lambda xl: xl.to(torch.float32)), lh, rh, mesh, s)
+        grid.append(_each(haloed, lambda hl: fir_filter(hl, taps, mode="valid")))
     return unshard(grid, mesh, ST)
 
 
@@ -396,22 +427,24 @@ def sharded_stream_process(
     st_grids = [shard(leaf, mesh, (STATION_AXIS,)) for leaf in state]
     outs = []  # per station: (state, events, thr, on_full[, psd_db]) per position
     for s, row in enumerate(x_grid):
-        fronts = [front_fn(cfg, xl, fs) for xl in row]
-        on_full = time_all_gather([f[0] for f in fronts], -1)
-        pm_full = time_all_gather([f[1] for f in fronts], -1)
-        cells = []
+        fronts = _each(row, lambda xl: front_fn(cfg, xl, fs))
+        on_full = time_all_gather(_each(fronts, lambda f: f[0]), -1, mesh, s)
+        pm_full = time_all_gather(_each(fronts, lambda f: f[1]), -1, mesh, s)
+        cells = [None] * n_time
         for k in range(n_time):
+            if fronts[k] is None:
+                continue
             st_k = streaming.StreamState(*(g[s][k] for g in st_grids))
             st2, ev, thr = solve(scfg, st_k, on_full[k], pm_full[k])
             cell = (st2, ev, thr, on_full[k])
-            cells.append(cell if headless else cell + (fronts[k][2]["psd_db"],))
+            cells[k] = cell if headless else cell + (fronts[k][2]["psd_db"],)
         outs.append(cells)
 
     def gather(j, spec):
-        return unshard([[cell[j] for cell in cells] for cells in outs], mesh, spec)
+        return unshard([_each(cells, lambda c: c[j]) for cells in outs], mesh, spec)
 
     def gather_tuple(j, kind):
-        return kind(*(unshard([[cell[j][f] for cell in cells] for cells in outs], mesh,
+        return kind(*(unshard([_each(cells, lambda c: c[j][f]) for cells in outs], mesh,
                               (STATION_AXIS,))
                       for f in range(len(kind._fields))))
 
@@ -507,14 +540,15 @@ def sharded_channelize_iq(
     dev_tables = _on_devices(mesh, *plan["tables"], *plan["rot"])
     re_grid, im_grid = shard(x_re, mesh, (TIME_AXIS,)), shard(x_im, mesh, (TIME_AXIS,))
     y_re, y_im = [], []
-    for re_row, im_row in zip(re_grid, im_grid):
-        xs = [torch.stack([a.to(torch.float32), b.to(torch.float32)])
+    for s, (re_row, im_row) in enumerate(zip(re_grid, im_grid)):
+        xs = [None if a is None else torch.stack([a.to(torch.float32), b.to(torch.float32)])
               for a, b in zip(re_row, im_row)]
-        haloed = halo_exchange(xs, plan["pl"], plan["rh"])  # (2, m_loc·q) each, fresh
-        cells = [_iq_bank_local(xh.reshape(2, plan["m_loc"], plan["q"]), k, dev_tables[xh.device],
+        haloed = halo_exchange(xs, plan["pl"], plan["rh"], mesh, s)  # (2, m_loc·q) each, fresh
+        cells = [None if xh is None else
+                 _iq_bank_local(xh.reshape(2, plan["m_loc"], plan["q"]), k, dev_tables[xh.device],
                                 plan) for k, xh in enumerate(haloed)]
-        y_re.append([c[0] for c in cells])
-        y_im.append([c[1] for c in cells])
+        y_re.append(_each(cells, lambda c: c[0]))
+        y_im.append(_each(cells, lambda c: c[1]))
     spec = (None, TIME_AXIS)
     return unshard(y_re, mesh, spec), unshard(y_im, mesh, spec)
 
@@ -560,10 +594,11 @@ def sharded_channelize_iq_frames(
     y_re, y_im = [], []
     for row in shard(f_sh, mesh, (TIME_AXIS, None, None, None)):
         # a fresh contiguous copy, as the flat form's haloed frames
-        cells = [_iq_bank_local(fl[0].to(torch.float32, copy=True), k, dev_tables[fl.device], plan)
+        cells = [None if fl is None else
+                 _iq_bank_local(fl[0].to(torch.float32, copy=True), k, dev_tables[fl.device], plan)
                  for k, fl in enumerate(row)]
-        y_re.append([c[0] for c in cells])
-        y_im.append([c[1] for c in cells])
+        y_re.append(_each(cells, lambda c: c[0]))
+        y_im.append(_each(cells, lambda c: c[1]))
     spec = (None, TIME_AXIS)
     return unshard(y_re, mesh, spec), unshard(y_im, mesh, spec)
 
