@@ -126,6 +126,24 @@ non-zero (there is no CPU fallback):
    compute mode (not ``Default``: (a)-(c) under ``not_run``); (d) (a) over
    16 stations on a world-size-1 NCCL group (K3 4 times, bit-equal).
 
+16. e2e_determinism — repeats that must give the same bits on the card:
+   (a) ``apps.analyze.main`` twice with ``--fixed-threshold``, twice with
+   K1 (impl auto) and ``proc_wav_file(impl="parallel")`` twice on the batch
+   day, each pair's event CSVs and Audacity labels byte-identical; (b) 20
+   repeats of ``events_from_mask`` on the day's fixed-threshold mask (every
+   field the same bits), its means equal to ``fixed_point_run_means`` on
+   CPU copies bit for bit and to the CPU's float path within the
+   analyzer's 1e-4 dB; (c) 20 repeats of ``adaptive_thresholds_parallel``
+   on the day's delta and on the front end's (8, 300) detection input
+   (thresholds and mask the same bits), beside the plain float
+   ``torch.cumsum`` and ``scatter_add_`` that they no longer use (repeats
+   and times); (d) every ``ms-torch-*`` script of ``pyproject.toml``, in a
+   process where ``import jax`` fails: its module imports and
+   ``main(["--help"])`` exits 0; (e) ``build_native()``
+   and ``LOCAL_RANK=0`` taking ``cuda:0`` (``process_device``, the scaling
+   bench's ``local_devices``).  Its K1 launches are printed on its line and
+   not added to the kernel records' counts.
+
 Each main path is driven with every launch count set to 0 just before it
 and read just after.  The last three lines are the ``nvidia-smi`` line, one
 JSON object with a record per kernel, and ``{"ok": true, "device": {...}}``.
@@ -245,6 +263,12 @@ EPISODE_WELCH_STATIONS = 8
 EPISODE_K1_CAP = 4096  # events of the batch day (detect_adaptive's default cap)
 EPISODE_CPU_REPS = 3  # CPU walls of the scan / jump / hop, median of 3
 LIVE_FEED_SEC = 60.0  # apps.live's chunk, and its waterfall ring (max_range_sec)
+# e2e_determinism: repeats that must give the same bits; the card's event
+# means against the CPU's float path within the analyzer's DB_ATOL
+# (tests/test_torch_analyze.py); a buffer no fixed-threshold day fills.
+DETERMINISM_REPEATS = 20
+DETERMINISM_DB_ATOL = 1e-4
+DETERMINISM_CAP = 1 << 16
 # Card peaks for the bound (H100 SXM data sheet): HBM bytes/s, FP32 FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -684,13 +708,13 @@ def phase_kernel_k3() -> dict:
     scfg = st.StreamConfig.from_config(live_config())
 
     def carried(on, pm, n_before, cfg=scfg):
-        state = st.stream_scan(cfg, st.stream_init_batch(cfg, on.shape[0], DEVICE),
+        state = st.stream_scan(cfg, st.stream_init_batch(cfg, on.shape[0], device=DEVICE),
                                on[:, :n_before], pm[:, :n_before])[0]
         return state, on[:, n_before:].contiguous(), pm[:, n_before:].contiguous()
 
     def case_inputs(label):
         """(state, on, pm, StreamConfig, what the carried state must be)."""
-        fresh = lambda C, on, pm, cfg=scfg: (st.stream_init_batch(cfg, C, DEVICE), on, pm, cfg)
+        fresh = lambda C, on, pm, cfg=scfg: (st.stream_init_batch(cfg, C, device=DEVICE), on, pm, cfg)
         if label == "stations":
             return fresh(64, *stream_series(64, 3000, seed=64 * 3000)), None
         if label == "live_feed":  # a burst over the seam: the feed starts inside a track
@@ -1023,7 +1047,7 @@ def phase_e2e_stations() -> dict:
     cfg = live_config()
     scfg = st.StreamConfig.from_config(cfg)
     x, n, tones = stations_fixture()
-    st0 = st.stream_init_batch(scfg, STATIONS, DEVICE)
+    st0 = st.stream_init_batch(scfg, STATIONS, device=DEVICE)
 
     # --- the main path: bins front, then one fused launch for all stations ---
     torch.cuda.synchronize()
@@ -1256,7 +1280,7 @@ def phase_e2e_frontend_iq(iq: dict) -> dict:
     f_host = fir.frame_capture_host(np.stack([x_re, x_im]), plan)
     frame_s = time.perf_counter() - t0
     f = torch.from_numpy(f_host).to(DEVICE)
-    st0 = st.stream_init_batch(scfg, len(freqs), DEVICE)
+    st0 = st.stream_init_batch(scfg, len(freqs), device=DEVICE)
 
     def pipeline(frames):
         audio, _ = fir.channelize_iq_frames(frames, tables, plan)
@@ -1560,9 +1584,17 @@ def host_packages() -> dict:
     return {**found, "gxx": shutil.which("g++")}
 
 
+def replay_start() -> datetime.datetime:
+    """The replays' audio timeline starts yesterday at 21:00."""
+    return datetime.datetime.combine(datetime.date.today() - datetime.timedelta(days=1),
+                                     datetime.time(21))
+
+
 def run_monitor_cli(wav: str, out: str, extra: list):
     """``apps.monitor.main`` over the 6 h replay into fresh ``out/csv`` and
-    ``out/png``: (csv dir, png dir, wall seconds, segments, pump sources)."""
+    ``out/png``: (csv dir, png dir, wall seconds, segments, pump sources).
+    The WAV source runs on the audio timeline (``--start-time``); ``--pump``
+    has no position, so it runs on the wall clock, as in the JAX CLI."""
     import torch
 
     from meteor_scatter_tpu_torch.apps import monitor
@@ -1579,7 +1611,7 @@ def run_monitor_cli(wav: str, out: str, extra: list):
             made.append(self)
 
     csv_dir, png_dir = os.path.join(out, "csv"), os.path.join(out, "png")
-    start = (datetime.date.today() - datetime.timedelta(days=1)).isoformat() + "T21:00:00"
+    clock = [] if "--pump" in extra else ["--start-time", replay_start().isoformat()]
     monitor.PumpSegmentSource = RecordedPump
     try:
         torch.cuda.synchronize()
@@ -1588,7 +1620,7 @@ def run_monitor_cli(wav: str, out: str, extra: list):
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(log):
             rc = monitor.main(["--wav", wav, "--csv-out", csv_dir, "--spec-out", png_dir,
-                               "--start-time", start, "--device", DEVICE, *extra])
+                               *clock, "--device", DEVICE, *extra])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
@@ -1598,6 +1630,57 @@ def run_monitor_cli(wav: str, out: str, extra: list):
     if rc != 0 or any(launches.values()) or segments != MONITOR_HOURS * 3600 // MONITOR_SEG_SEC:
         raise AssertionError(f"monitor.main {extra}: rc {rc}, {segments} segments, {launches}")
     return csv_dir, png_dir, wall, segments, made
+
+
+class AudioClock:
+    """A segment source whose clock follows the segments it has handed out,
+    from :func:`replay_start` (what ``--start-time`` gives a positioned
+    source).  It hides the source's position, so ``run_monitor`` journals no
+    offset for either source."""
+
+    def __init__(self, source):
+        self.source, self.n = source, 0
+
+    def grab(self):
+        seg = self.source.grab()
+        self.n += seg is not None
+        return seg
+
+    def now(self) -> datetime.datetime:
+        return replay_start() + datetime.timedelta(seconds=self.n * MONITOR_SEG_SEC)
+
+
+def run_monitor_clocked(wav: str, out: str, kind: str):
+    """``apps.monitor.run_monitor`` over the 6 h replay from the pump or the
+    WAV source on the same injected audio clock (:class:`AudioClock`):
+    (csv dir, png dir, wall seconds, segments, source)."""
+    import torch
+
+    from meteor_scatter_tpu_torch.apps import monitor
+
+    cfg = monitor.MonitorConfig(csv_out_dir=os.path.join(out, "csv"),
+                                spec_out_dir=os.path.join(out, "png"))
+    src = (monitor.PumpSegmentSource if kind == "pump" else monitor.WavSegmentSource)(wav, cfg)
+    if kind == "pump":
+        src.native_at_start = (src.ring.native, src.pump.native)
+    clock = AudioClock(src)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(log):
+            monitor.run_monitor(clock, cfg, now_fn=clock.now, device=DEVICE)
+        torch.cuda.synchronize()
+    finally:
+        if kind == "pump":
+            src.close()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    segments = log.getvalue().count("Critical bursts this segment")
+    if any(launches.values()) or segments != MONITOR_HOURS * 3600 // MONITOR_SEG_SEC:
+        raise AssertionError(f"run_monitor ({kind}): {segments} segments, {launches}")
+    return cfg.csv_out_dir, cfg.spec_out_dir, wall, segments, src
 
 
 def same_tree(a: str, b: str) -> bool:
@@ -1641,17 +1724,16 @@ def phase_e2e_host(tmp: str, inputs: dict) -> dict:
             raise AssertionError("the INI round trip changed the configuration")
     out["config_round_trip"] = {"sections": len(tcfg._SECTIONS), "equal": True}
 
-    # --- monitor --pump against the WAV source, interleaved ---
+    # --- the pump against the WAV source on one injected audio clock, interleaved ---
     wav = os.path.join(tmp, "monitor_5khz.wav")
     runs = {"pump": [], "wav": []}
     trees = {}
     for k, kind in enumerate(("pump", "wav", "wav", "pump")):
-        csv_dir, png_dir, wall, segments, made = run_monitor_cli(
-            wav, os.path.join(tmp, f"host_{kind}{k}"), ["--pump"] if kind == "pump" else [])
+        csv_dir, png_dir, wall, segments, src = run_monitor_clocked(
+            wav, os.path.join(tmp, f"host_{kind}{k}"), kind)
         runs[kind].append(segments / wall)
         trees.setdefault(kind, (csv_dir, png_dir))
         if kind == "pump":
-            src = made[0]
             if src.native_at_start != (True, True) or src.ring.dropped() != 0:
                 raise AssertionError(f"pump: native (ring, pump) {src.native_at_start}, "
                                      f"{src.ring.dropped()} dropped")
@@ -1659,8 +1741,14 @@ def phase_e2e_host(tmp: str, inputs: dict) -> dict:
                 raise AssertionError(f"pump pushed {src.pump.frames_pushed()} frames")
     for i in range(2):
         if not same_tree(trees["pump"][i], trees["wav"][i]):
-            raise AssertionError(f"monitor --pump: {('csv', 'png')[i]} files differ from the WAV "
+            raise AssertionError(f"the pump source: {('csv', 'png')[i]} files differ from the WAV "
                                  "source's")
+    # --- the CLI's --pump, on the wall clock as in the JAX CLI (PNGs of one
+    # second and the same counts share a name there): no offset journal ---
+    csv_cli, _, cli_wall, _, made = run_monitor_cli(wav, os.path.join(tmp, "host_cli"), ["--pump"])
+    if ".offset.json" in os.listdir(csv_cli) or made[0].native_at_start != (True, True):
+        raise AssertionError(f"monitor --pump: {sorted(os.listdir(csv_cli))}, native "
+                             f"{made[0].native_at_start}")
     from meteor_scatter_tpu_torch.io.native import load_native
 
     out["pump"] = {
@@ -1668,6 +1756,7 @@ def phase_e2e_host(tmp: str, inputs: dict) -> dict:
         "library": load_native()._name, "csv_png_equal_wav_source": True,
         "segments_per_s_pump": runs["pump"], "segments_per_s_wav": runs["wav"],
         "order": ["pump", "wav", "wav", "pump"],
+        "cli_pump_segments_per_s": segments / cli_wall, "cli_pump_offset_journal": False,
     }
     ledger_dir = trees["pump"][0]
 
@@ -1855,7 +1944,7 @@ def max_dev(a, b) -> float:
     return float(torch.where(both_nan | (a == b), 0.0, (a - b).abs()).max())
 
 
-def phase_e2e_sharded(tmp: str, iq: dict) -> dict:
+def phase_e2e_sharded(tmp: str, iq: dict) -> tuple:
     """The multi-device layer on virtual meshes of the one card: (a) the
     dryrun on a 2 x 4 mesh; (b) BASELINE config 5 (:func:`stations_fixture`)
     through ``sharded_stream_process(front="bins", impl="fused")`` on a
@@ -1865,7 +1954,9 @@ def phase_e2e_sharded(tmp: str, iq: dict) -> dict:
     through ``sharded_channelize_iq_frames`` on a 1 x 4 mesh against
     ``channelize_iq_frames``, then ``detect_channels`` on a 2 x 1 mesh
     against no mesh; (d) the multi-process runtime on a world-size-1 NCCL
-    group.  K3's launches here are this line's, not the kernel records'."""
+    group.  K3's launches here are this line's, not the kernel records'.
+    Returns the record and (c)'s (8, 300) detection input, which
+    ``e2e_determinism`` reuses."""
     import datetime
 
     import torch
@@ -1905,7 +1996,7 @@ def phase_e2e_sharded(tmp: str, iq: dict) -> dict:
     cfg = live_config()
     scfg = st.StreamConfig.from_config(cfg)
     x, n, _ = stations_fixture()
-    st0 = st.stream_init_batch(scfg, STATIONS, DEVICE)
+    st0 = st.stream_init_batch(scfg, STATIONS, device=DEVICE)
     mesh = make_mesh(2, 4, [card] * 8)
 
     def sharded():
@@ -2026,7 +2117,7 @@ def phase_e2e_sharded(tmp: str, iq: dict) -> dict:
                       "host_shard": [info.process_id, info.num_processes,
                                      list(info.station_range), info.local_devices]}
     emit(out)
-    return out
+    return out, d_0
 
 
 # e2e_multiproc: BASELINE config 5 on a mesh spanning two processes of the
@@ -2111,7 +2202,7 @@ def multiproc_child(rank: int, spec: dict) -> None:
             if r == rank:
                 st.stream_front_headless(cfg, x[:1, :1], LIVE_FS)
             dist.barrier()
-        st0 = st.stream_init_batch(scfg, x.shape[0], card)
+        st0 = st.stream_init_batch(scfg, x.shape[0], device=card)
         mesh = make_mesh(2, 2, [card] * 2)
         if mesh.transport != spec["transport"]:
             raise AssertionError(f"transport {mesh.transport}, expected {spec['transport']}")
@@ -2217,7 +2308,7 @@ def phase_e2e_multiproc(tmp: str, iq: dict, day_delta: np.ndarray) -> dict:
     cfg = live_config()
     scfg = st.StreamConfig.from_config(cfg)
     x, _, _ = stations_fixture()
-    st0 = st.stream_init_batch(scfg, STATIONS, DEVICE)
+    st0 = st.stream_init_batch(scfg, STATIONS, device=DEVICE)
     fs = int(FRONTEND_FS)
     bank = (IQ_BANDWIDTH, IQ_DECIM, IQ_NUMTAPS)
     k3_children = 0
@@ -2327,7 +2418,7 @@ def phase_e2e_multiproc(tmp: str, iq: dict, day_delta: np.ndarray) -> dict:
 
     # --- (d) the process-group path on a world-size-1 NCCL group ---
     xs = x[:MULTIPROC_NCCL_STATIONS]
-    st_s = st.stream_init_batch(scfg, MULTIPROC_NCCL_STATIONS, DEVICE)
+    st_s = st.stream_init_batch(scfg, MULTIPROC_NCCL_STATIONS, device=DEVICE)
     dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'nccl_mp_store')}",
                             world_size=1, rank=0, timeout=datetime.timedelta(seconds=120))
     try:
@@ -2370,8 +2461,8 @@ def cpu_solver_ms(scfg, on, pm) -> dict:
     from meteor_scatter_tpu_torch.models import streaming as st
 
     on, pm = on.cpu(), pm.cpu()
-    st0 = (st.stream_init(scfg, "cpu") if on.dim() == 1
-           else st.stream_init_batch(scfg, on.shape[0], "cpu"))
+    st0 = (st.stream_init(scfg, device="cpu") if on.dim() == 1
+           else st.stream_init_batch(scfg, on.shape[0], device="cpu"))
     out = {"shape": list(on.shape), "threads": torch.get_num_threads()}
     want = None
     for name, solve in (("scan", st.stream_scan), ("jump", st.stream_scan_jump),
@@ -2421,7 +2512,7 @@ def phase_e2e_episode(tmp: str) -> dict:
     cfg = live_config()
     scfg = st.StreamConfig.from_config(cfg)
     x, n, _ = stations_fixture()
-    st0 = st.stream_init_batch(scfg, STATIONS, DEVICE)
+    st0 = st.stream_init_batch(scfg, STATIONS, device=DEVICE)
 
     # --- (a) the 64 stations: jump and hop against one K3 launch ---
     on, pm, _ = st.stream_front_headless(cfg, x, LIVE_FS)
@@ -2610,6 +2701,208 @@ def phase_e2e_episode(tmp: str) -> dict:
     return out
 
 
+def distinct_bits(fn, reps: int = DETERMINISM_REPEATS) -> int:
+    """How many different results, bit for bit, ``reps`` calls of ``fn``
+    give (a tensor or a tuple of tensors)."""
+    import torch
+
+    seen = set()
+    for _ in range(reps):
+        r = fn()
+        r = r if isinstance(r, tuple) else (r,)
+        seen.add(b"".join(t.reshape(-1).contiguous().view(torch.uint8).cpu().numpy().tobytes()
+                          for t in r))
+    return len(seen)
+
+
+def keep_day_wav(tmp: str, host_tmp: str) -> str:
+    """Move the batch day's WAV (same gqrx name) out of ``tmp`` for
+    ``e2e_determinism``."""
+    os.makedirs(os.path.join(host_tmp, "day"))
+    path = os.path.join(host_tmp, "day", ANALYZE_WAV)
+    os.replace(os.path.join(tmp, ANALYZE_WAV), path)
+    return path
+
+
+def phase_e2e_determinism(day_wav: str, fe_delta) -> dict:
+    """The batch day's detections written twice a route byte for byte, the
+    event means and the fixpoint's thresholds the same bits over repeats,
+    the ``ms-torch-*`` scripts, ``build_native`` and ``LOCAL_RANK``."""
+    import importlib
+    import importlib.util
+    import tomllib
+
+    import torch
+
+    from meteor_scatter_tpu_torch.apps import analyze
+    from meteor_scatter_tpu_torch.io.native import build_native
+    from meteor_scatter_tpu_torch.models import adaptive
+    from meteor_scatter_tpu_torch.models import events as tev
+    from meteor_scatter_tpu_torch.ops.kernels import adaptive_kernel as ak
+    from meteor_scatter_tpu_torch.parallel.distributed import process_device
+
+    out = {"phase": "e2e_determinism", "card": nvidia_smi_line(), "repeats": DETERMINISM_REPEATS}
+    work = os.path.dirname(day_wav)
+
+    # --- (a) the analyzer twice a route: the same CSV and label bytes ---
+    def fixed_or_k1(extra):
+        def run(csv_p, lbl_p):
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = analyze.main([day_wav, "--out-csv", csv_p, "--out-audacity", lbl_p,
+                                   "--device", DEVICE, *extra])
+            if rc != 0:
+                raise RuntimeError(f"analyze.main {extra} returned {rc}")
+        return run
+
+    def parallel(csv_p, lbl_p):
+        with contextlib.redirect_stdout(io.StringIO()):
+            analyze.proc_wav_file(day_wav, out_csv_file=csv_p, out_audacity_lbl_file=lbl_p,
+                                  wav_start_date_time=analyze.parse_gqrx_start_time(day_wav),
+                                  expected_sample_rate=None, impl="parallel", device=DEVICE,
+                                  verbose=False)
+
+    n_blocks = FS * HOURS * 3600 // int(FS * BLOCK_SEC)
+    k1_runs = math.ceil(n_blocks / (ak.MAX_FUSED_BLOCKS - SOLVER["window_blocks"]))
+    routes = (("fixed_threshold", fixed_or_k1(["--fixed-threshold"]), 0),
+              ("k1", fixed_or_k1([]), k1_runs), ("parallel", parallel, 0))
+    out["analyzer"] = {}
+    for route, run, want_k1 in routes:
+        files, walls = [], []
+        zero_launch_counts()
+        for k in range(2):
+            csv_p, lbl_p = (os.path.join(work, f"{route}{k}.{x}") for x in ("csv", "txt"))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(csv_p, lbl_p)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            files.append((file_bytes(csv_p), file_bytes(lbl_p)))
+        launches = launch_counts()
+        if files[0] != files[1] or not files[0][0] or launches["adaptive_solver"] != 2 * want_k1:
+            raise AssertionError(f"analyzer {route}: CSVs equal {files[0][0] == files[1][0]}, "
+                                 f"labels equal {files[0][1] == files[1][1]}, {launches}")
+        out["analyzer"][route] = {
+            "events": len(read_rows(os.path.join(work, f"{route}0.csv"))),
+            "csv_bytes": len(files[0][0]), "csv_identical": True, "labels_identical": True,
+            "k1_launches": launches["adaptive_solver"], "wall_s": walls}
+
+    # --- (b) events_from_mask on the day's fixed-threshold mask ---
+    res = analyze.proc_wav_file(day_wav, flag_adaptive_threshold=False, expected_sample_rate=None,
+                                device=DEVICE, verbose=False)
+    delta = torch.from_numpy(res.delta_power).to(DEVICE)
+    above = delta > torch.from_numpy(res.thresholds).to(DEVICE)
+    cap = DETERMINISM_CAP
+    ev = tev.events_from_mask(above, delta, cap)
+    n_ev = int(ev.count)
+    distinct_ev = distinct_bits(lambda: tuple(tev.events_from_mask(above, delta, cap)))
+    helper_cpu = tev.fixed_point_run_means(above.cpu(), delta.cpu(), cap)
+    helper_equal = bits_equal(ev.db_mean.cpu(), helper_cpu)
+    ev_f32 = tev.events_from_mask(above.cpu(), delta.cpu(), cap)
+    same_runs = all(bool(torch.equal(getattr(ev, f).cpu(), getattr(ev_f32, f)))
+                    for f in ("start", "stop", "count", "overflow"))
+    db_err = float((ev.db_mean[:n_ev].cpu() - ev_f32.db_mean[:n_ev]).abs().max())
+    _, _, seg = tev._run_slots(above, cap)
+
+    def float_sums():  # the CPU route's run sums, on the card
+        return torch.zeros(cap + 1, device=DEVICE).scatter_add_(0, seg, torch.where(above, delta, 0))
+
+    float_distinct = distinct_bits(float_sums)
+    if distinct_ev != 1 or not helper_equal or not same_runs or bool(ev.overflow) \
+            or n_ev == 0 or not db_err <= DETERMINISM_DB_ATOL:
+        raise AssertionError(f"events_from_mask: {distinct_ev} distinct results, helper == CPU "
+                             f"{helper_equal}, runs equal the CPU's {same_runs}, {n_ev} events, "
+                             f"dB err {db_err}")
+    out["events_from_mask"] = {
+        "blocks": int(delta.shape[0]), "events": n_ev, "distinct_results": distinct_ev,
+        "means_equal_cpu_helper_bits": True, "runs_equal_cpu": True,
+        "db_max_abs_err_vs_cpu_float": db_err, "db_atol": DETERMINISM_DB_ATOL,
+        "float_scatter_add_distinct": float_distinct,
+        "ms": cuda_ms(lambda: tev.events_from_mask(above, delta, cap), warmup=1, reps=5),
+        "fixed_point_means_ms": cuda_ms(lambda: tev.fixed_point_run_means(above, delta, cap),
+                                        warmup=1, reps=5),
+        "float_scatter_add_ms": cuda_ms(float_sums, warmup=1, reps=5)}
+
+    # --- (c) the fixpoint's thresholds on the day and on the front end's input,
+    # its window sums timed beside the float prefix difference they replace ---
+    out["adaptive_thresholds_parallel"] = {}
+    for name, x in (("day", delta), ("frontend", fe_delta)):
+        distinct = distinct_bits(lambda: adaptive.adaptive_thresholds_parallel(x, **SOLVER))
+        i = torch.arange(x.shape[-1], device=x.device)
+        lo = torch.clamp(i - SOLVER["window_blocks"], min=0)
+
+        def float_window_sums():
+            cs = torch.cat([x.new_zeros(x.shape[:-1] + (1,)), torch.cumsum(x, -1)], -1)
+            return cs[..., i] - cs[..., lo]
+
+        out["adaptive_thresholds_parallel"][name] = {
+            "shape": list(x.shape), "distinct_results": distinct,
+            "float_cumsum_distinct": distinct_bits(lambda: torch.cumsum(x, -1)),
+            "ms": cuda_ms(lambda: adaptive.adaptive_thresholds_parallel(x, **SOLVER), warmup=1,
+                          reps=5),
+            "window_sums_fixed_point_ms": cuda_ms(
+                lambda: adaptive.window_sums_fixed_point(x, lo, i), warmup=1, reps=5),
+            "window_sums_float_ms": cuda_ms(float_window_sums, warmup=1, reps=5)}
+        if distinct != 1:
+            raise AssertionError(f"adaptive_thresholds_parallel on the {name}: {distinct} "
+                                 f"distinct results in {DETERMINISM_REPEATS}")
+    del delta, above, ev
+
+    # --- (d) the ms-torch-* console scripts, in a process where `import jax` fails ---
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        scripts = sorted(v for k, v in tomllib.load(f)["project"]["scripts"].items()
+                         if k.startswith("ms-torch-"))
+    code = (
+        "import contextlib, importlib, io, json, sys\n"
+        "sys.modules['jax'] = None  # any `import jax` now raises ImportError\n"
+        "codes = {}\n"
+        "for target in sys.argv[1:]:\n"
+        "    module, func = target.split(':')\n"
+        "    try:\n"
+        "        with contextlib.redirect_stdout(io.StringIO()):\n"
+        "            getattr(importlib.import_module(module), func)(['--help'])\n"
+        "        codes[target] = 0\n"
+        "    except SystemExit as e:\n"
+        "        codes[target] = e.code\n"
+        "loaded = [k for k, v in sys.modules.items() if v is not None and (k.split('.')[0] == 'jax'\n"
+        "          or k == 'meteor_scatter_tpu' or k.startswith('meteor_scatter_tpu.'))]\n"
+        "print(json.dumps({'codes': codes, 'loaded': loaded}))\n")
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", code, *scripts], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    got = json.loads(proc.stdout.strip().splitlines()[-1]) if proc.returncode == 0 else None
+    if got is None or len(scripts) != 6 or set(got["codes"].values()) != {0} or got["loaded"]:
+        raise AssertionError(f"ms-torch-* --help without JAX: rc {proc.returncode}, {got}, "
+                             f"{proc.stderr[-2000:]}")
+    out["scripts"] = {"help_exit_0_without_jax": scripts,
+                      "jax_installed": importlib.util.find_spec("jax") is not None}
+
+    # --- (e) the native build and one card per local rank ---
+    spec = importlib.util.spec_from_file_location(
+        "torch_scaling_bench", os.path.join(REPO, "tools", "torch_scaling_bench.py"))
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    saved = os.environ.get("LOCAL_RANK")
+    os.environ["LOCAL_RANK"] = "0"
+    try:
+        dev = process_device("cuda")
+        current = torch.cuda.current_device()
+        bench_devices, _ = bench.local_devices("cuda", None)
+    finally:
+        if saved is None:
+            os.environ.pop("LOCAL_RANK")
+        else:
+            os.environ["LOCAL_RANK"] = saved
+    native = build_native()
+    if not native or dev != torch.device("cuda", 0) or current != 0 or bench_devices != ["cuda:0"]:
+        raise AssertionError(f"build_native() {native}; LOCAL_RANK=0 gave {dev}, current "
+                             f"{current}, the bench {bench_devices}")
+    out["build_native"] = True
+    out["local_rank_0"] = {"process_device": str(dev), "current_device": current,
+                           "bench_devices": bench_devices}
+    emit(out)
+    return out
+
+
 def port_modules_loaded_from_jax() -> list:
     """JAX or JAX-package modules present in this process."""
     return [k for k, v in sys.modules.items() if v is not None and (
@@ -2645,6 +2938,7 @@ def main() -> int:
             phase_e2e_spec_export(tmp)
             phase_e2e_episode(tmp)
             host_inputs = cut_host_inputs(tmp, host_tmp)
+            day_wav = keep_day_wav(tmp, host_tmp)
         e2e_st = phase_e2e_stations()
         phase_e2e_frontend()
         iq = frontend_iq_fixture()
@@ -2652,9 +2946,10 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             phase_e2e_monitor(tmp)
             phase_e2e_host(tmp, host_inputs)
-            phase_e2e_sharded(tmp, iq)
+            _, fe_delta = phase_e2e_sharded(tmp, iq)
             e2e_mp = phase_e2e_multiproc(tmp, iq, day_delta)
         del iq
+        phase_e2e_determinism(day_wav, fe_delta)
     loaded = port_modules_loaded_from_jax()
     if loaded:
         raise AssertionError(f"the port loaded JAX or the JAX package: {loaded[:5]}")

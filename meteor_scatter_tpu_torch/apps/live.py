@@ -84,7 +84,7 @@ class LiveSession:
         # models/streaming.py resolve_stream_auto), "scan", "jump", "hop" or
         # "fused"
         self.impl = impl
-        self.state = stream_init(StreamConfig.from_config(cfg), self.device)
+        self.state = stream_init(StreamConfig.from_config(cfg), device=self.device)
         self.block_samples = int(round(cfg.proc_block_sec * fs))
         self.wf_win = int(self.vis.max_range_sec / cfg.proc_block_sec)
         self.freqs = welch_freqs(fs, cfg.n_fft)

@@ -113,11 +113,9 @@ class PumpSegmentSource:
     streams the file into a lock-free SPSC ring while this thread pops
     fixed segments — the same producer/consumer split as the reference's
     TwitchAudioGrabber thread + detection loop (prime_detection.py:49-57,
-    :128), with file IO overlapping device compute.
-
-    ``pos`` counts the samples popped, as the WAV source's does, so
-    ``--start-time`` dates the ledger by the audio timeline here too (the
-    JAX package's pump source has no position and refuses it).
+    :128), with file IO overlapping device compute.  It has no position,
+    as in the reference: nothing is journaled, and ``--start-time`` is
+    refused with it.
     """
 
     def __init__(self, path: str, cfg: MonitorConfig, realtime: bool = False):
@@ -134,14 +132,12 @@ class PumpSegmentSource:
             path, self.ring, chunk_frames=self.seg,
             pace_factor=1.0 if realtime else 0.0,
         )
-        self.pos = 0
         self.source_id = os.path.abspath(path)
 
     def grab(self) -> Optional[np.ndarray]:
         while True:
             seg = self.ring.pop_segment(self.seg)
             if seg is not None:
-                self.pos += self.seg
                 # back to int16 amplitude scale: the spectrogram dB windows
                 # are calibrated to raw PCM like the reference's grabber
                 # output (exact inverse of the ring's /32768 pop scaling,
@@ -323,7 +319,7 @@ def main(argv=None) -> int:
                         "audio (accelerated-day replay / soak testing)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.start_time is not None and not args.wav:
+    if args.start_time is not None and (not args.wav or args.pump):
         p.error("--start-time requires a positioned (WAV replay) source")
 
     cfg = MonitorConfig(

@@ -24,14 +24,33 @@ _lib: Optional[ctypes.CDLL] = None
 _tried = False
 
 
-def load_native() -> Optional[ctypes.CDLL]:
-    """Load (building if necessary) the native library, else None.  A failed
-    build prints the compiler's output, once a process."""
+def build_native(quiet: bool = True) -> bool:
+    """Compile the library (``csrc/ms_native.cc`` with g++, unless a build of
+    the same source is there); returns success.  ``quiet=False`` prints the
+    compiler's output when the build fails."""
+    from meteor_scatter_tpu_torch.ops.kernels import _build
+
+    try:
+        _build.build("ms_native")
+        return True
+    except (RuntimeError, OSError) as e:
+        if not quiet:
+            print(e, file=sys.stderr)
+        return False
+
+
+def load_native(auto_build: bool = True) -> Optional[ctypes.CDLL]:
+    """Load (building if necessary, unless ``auto_build`` is False) the native
+    library, else None.  A failed build prints the compiler's output, once a
+    process; without ``auto_build`` and without a build, None is returned
+    and a later call may still build."""
     global _lib, _tried
     if _lib is not None or _tried:
         return _lib
     from meteor_scatter_tpu_torch.ops.kernels import _build
 
+    if not auto_build and not _build.library_path("ms_native").exists():
+        return None
     _tried = True
     try:
         lib = _build.load("ms_native")

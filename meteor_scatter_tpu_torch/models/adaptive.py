@@ -38,6 +38,7 @@ from meteor_scatter_tpu_torch.models.events import (
     events_from_mask,
     events_from_run_sums,
     merge_adjacent,
+    to_fixed_point,
     truncate_events,
 )
 from meteor_scatter_tpu_torch.ops.kernels import adaptive_kernel as ak
@@ -195,6 +196,51 @@ def adaptive_thresholds_parallel(
     return thr, above
 
 
+def _window_sums(x: torch.Tensor, lo: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``cs[..., i] - cs[..., lo]`` for the prefix sums ``cs`` of ``x`` along
+    its last axis (``cs[..., 0] = 0``).
+
+    On the CPU ``cs`` is a float ``torch.cumsum``, as the reference's.  On
+    a card a float ``torch.cumsum`` adds in no fixed order (a day's
+    thresholds changed bits from run to run), so there the sums are int64
+    fixed point (:func:`~meteor_scatter_tpu_torch.models.events.to_fixed_point`):
+    the exact window sum rounded to ``x.dtype``, the same bits on every
+    run (:func:`window_sums_fixed_point`)."""
+    if x.device.type != "cpu":
+        return window_sums_fixed_point(x, lo, i)
+    cs = torch.cat([x.new_zeros(x.shape[:-1] + (1,)), torch.cumsum(x, -1)], -1)
+    return cs[..., i] - cs[..., lo]
+
+
+def window_sums_fixed_point(x: torch.Tensor, lo: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``sum(x[..., lo[j]:i[j]])`` for every ``j``, exact in int64 fixed
+    point and rounded to ``x.dtype``: the same bits on every run and every
+    device.  A non-finite value gives what a float prefix difference gives:
+    NaN for every window starting after it, its value (NaN or ±inf) for
+    the windows before that which hold it."""
+    zero = x.new_zeros(x.shape[:-1] + (1,))
+    finite = torch.isfinite(x)
+    q, scale = to_fixed_point(torch.where(finite, x, 0))
+    cq = torch.cat([zero.long(), torch.cumsum(q, -1)], -1)
+    s = ((cq[..., i] - cq[..., lo]).to(torch.float64) / scale).to(x.dtype)
+    # prefix counts of NaN, +inf, -inf: the float prefix sum's value (each
+    # scanned along its last axis: a scan along an outer axis of 3 columns
+    # runs as 3 sequential threads on a card)
+    flags = torch.stack([torch.isnan(x), x == torch.inf, x == -torch.inf]).to(torch.int32)
+    fc = torch.cat([zero.to(torch.int32).expand(flags.shape[:-1] + (1,)),
+                    torch.cumsum(flags, -1, dtype=torch.int32)], -1) > 0
+
+    def prefix(j):
+        nan, pinf, ninf = fc[..., j]
+        v = torch.where(nan | (pinf & ninf), torch.nan,
+                        torch.where(pinf, torch.inf, torch.where(ninf, -torch.inf, 0.0)))
+        return nan | pinf | ninf, v.to(x.dtype)
+
+    bad_lo, _ = prefix(lo)
+    bad_i, v_i = prefix(i)
+    return torch.where(bad_lo, torch.nan, torch.where(bad_i, v_i, s))
+
+
 def _fixpoint(
     delta: torch.Tensor,
     threshold_std_factor: float,
@@ -218,15 +264,12 @@ def _fixpoint(
     ).to(dtype)
 
     # rolling-window stats (current block excluded) via prefix sums
-    zero = delta.new_zeros(delta.shape[:-1] + (1,))
-    cs = torch.cat([zero, torch.cumsum(delta, -1)], -1)
-    cs2 = torch.cat([zero, torch.cumsum(delta * delta, -1)], -1)
     i = torch.arange(n, device=delta.device)
     lo = torch.clamp(i - w, min=0)
     cnt = (i - lo).to(dtype)
     safe = torch.clamp(cnt, min=1)
-    m = (cs[..., i] - cs[..., lo]) / safe
-    m2 = (cs2[..., i] - cs2[..., lo]) / safe
+    m = _window_sums(delta, lo, i) / safe
+    m2 = _window_sums(delta * delta, lo, i) / safe
     std = torch.sqrt(torch.clamp(m2 - m * m, min=0))
     # cnt==0 only at block 0: the sequential scan computes 0+k*0 = 0 there
     windowed = torch.where(cnt > 0, m + threshold_std_factor * std, 0.0)

@@ -8,12 +8,17 @@ chunked GPU run never waits on the host between chunks.
 
 JAX's ``.at[i].set(v, mode="drop")`` becomes a ``scatter_`` into a buffer
 with one spare slot that collects the dropped writes and is cut off;
-``segment_sum`` becomes ``scatter_add_`` the same way.
+``segment_sum`` becomes ``scatter_add_`` the same way.  On the CPU the run
+sums are that float ``scatter_add_``, which equals the reference's
+``segment_sum``.  On CUDA a float ``scatter_add_`` is atomics in no fixed
+order (and so is a float ``torch.cumsum``), so there the run means come
+from :func:`fixed_point_run_means`: exact int64 sums (:func:`to_fixed_point`),
+the same bits on every run and every device.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Union
+from typing import NamedTuple, Tuple, Union
 
 import torch
 
@@ -62,6 +67,79 @@ def set_at(t: torch.Tensor, i: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return t.index_put((i.long().reshape(1),), v.reshape(1).to(t.dtype))
 
 
+def _run_slots(above: torch.Tensor, cap: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(the first block of each run; each block's run index, int32; its
+    output slot, int64, ``cap`` for blocks outside a run or in a run past
+    the capacity)."""
+    no = above.new_zeros(above.shape[:-1] + (1,))
+    is_start = above & ~torch.cat([no, above[..., :-1]], -1)
+    run_id = torch.cumsum(is_start.to(I32), -1, dtype=I32) - 1  # valid where above
+    return is_start, run_id, torch.where(above & (run_id < cap), run_id, cap).long()
+
+
+def to_fixed_point(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Finite values ``x`` (..., n) as int64 fixed point, row by row:
+    ``(q, scale)`` with ``q = round(x·scale)`` and ``scale = 2^k`` (float64,
+    shape (..., 1)) for the largest ``k`` with ``n·max|x|·2^k < 2^61``, so
+    that any sum of a row's ``q`` fits an int64 (at most ``2^61 + n/2``).
+    Integer sums are exact in any order: on a card, where float atomics and
+    a float ``torch.cumsum`` add in no fixed order, they give the same bits
+    on every run and the CPU's.  Raises ``ValueError`` when a row's
+    ``n·max|x|`` reaches 2^61 (``k`` would be negative); there is no
+    float fallback."""
+    n = x.shape[-1]
+    x = x.to(torch.float64)
+    amax = x.abs().amax(-1, keepdim=True) if n else x.new_zeros(x.shape[:-1] + (1,))
+    # frexp: n·max|x| < 2^e exactly (a rounded product only rounds up to 2^e)
+    _, e = torch.frexp(amax * n)
+    k = 61 - e.to(torch.int64)
+    if bool((k < 0).any()):
+        raise ValueError("to_fixed_point: n * max|x| reaches 2^61, past the int64 fixed "
+                         "point's range at a scale of at least 1")
+    scale = ((k + 1023) << 52).view(torch.float64)  # 2^k built from its bits: exact
+    return torch.round(x * scale).to(torch.int64), scale
+
+
+def _fixed_point_means(
+    above: torch.Tensor, series: torch.Tensor, seg: torch.Tensor, cap: int
+) -> torch.Tensor:
+    f64 = torch.float64
+    x = torch.where(above, series, 0)
+    q, scale = to_fixed_point(torch.where(torch.isfinite(x), x, 0))
+    buf = above.shape[:-1] + (cap + 1,)
+    qsum = torch.zeros(buf, dtype=torch.int64, device=x.device).scatter_add_(-1, seg, q)[..., :cap]
+    # per run: blocks, NaNs, +infs, -infs — int sums, exact in any order
+    flags = torch.stack([above, above & torch.isnan(series), above & (series == torch.inf),
+                         above & (series == -torch.inf)], -1).to(I32)
+    counts = torch.zeros(buf + (4,), dtype=I32, device=x.device).scatter_add_(
+        -2, seg.unsqueeze(-1).expand(flags.shape), flags
+    )[..., :cap, :]
+    cnt, n_nan, n_pinf, n_ninf = counts.unbind(-1)
+    mean = qsum.to(f64) / (cnt.clamp(min=1).to(f64) * scale)
+    # a non-finite block makes the mean the float sum's: NaN, or ±inf alone
+    mean = torch.where(n_ninf > 0, -torch.inf, mean)
+    mean = torch.where(n_pinf > 0, torch.inf, mean)
+    mean = torch.where((n_nan > 0) | ((n_pinf > 0) & (n_ninf > 0)) | (cnt == 0), torch.nan, mean)
+    return mean.to(series.dtype)
+
+
+def fixed_point_run_means(above: torch.Tensor, series: torch.Tensor, cap: int) -> torch.Tensor:
+    """Means of ``series`` over the first ``cap`` maximal runs of ``above``
+    (NaN past the last run), deterministic on every device.
+
+    Each row's finite values become int64 fixed point
+    (:func:`to_fixed_point`); the runs' ``q`` are summed by an int64
+    ``scatter_add_`` (integer addition commutes, so the order of the
+    atomics does not matter), converted back in float64, divided by the
+    count and rounded to ``series.dtype``.  The result on a card equals the
+    result on the CPU bit for bit.  A run holding a NaN, or both
+    infinities, gives NaN and one holding one infinity gives it, as the
+    float sum does.  Raises ``ValueError`` where :func:`to_fixed_point`
+    does.
+    """
+    return _fixed_point_means(above, series, _run_slots(above, cap)[2], cap)
+
+
 def events_from_mask(above: torch.Tensor, series: torch.Tensor, cap: int) -> Events:
     """Extract maximal runs of True from ``above`` with per-run mean of
     ``series``.
@@ -71,30 +149,31 @@ def events_from_mask(above: torch.Tensor, series: torch.Tensor, cap: int) -> Eve
     merging (`main.py:486-489`): both produce exactly the maximal runs.
     A batch ``(..., n)`` is taken row by row (the reference's ``jax.vmap``):
     the buffers are then ``(..., cap)`` and count and overflow ``(...)``.
+    The means are a float ``scatter_add_`` on the CPU (the reference's
+    ``segment_sum``) and :func:`fixed_point_run_means` on any other device.
     """
     n = above.shape[-1]
     dtype = series.dtype
     dev = above.device
     no = above.new_zeros(above.shape[:-1] + (1,))
-    prev = torch.cat([no, above[..., :-1]], -1)
     nxt = torch.cat([above[..., 1:], no], -1)
-    is_start = above & ~prev
+    is_start, run_id, seg = _run_slots(above, cap)
     is_stop = above & ~nxt  # last block of each run
-
-    run_id = torch.cumsum(is_start.to(I32), -1, dtype=I32) - 1  # valid where above
     num = is_start.sum(-1, dtype=I32)
 
     idx = torch.arange(n, dtype=I32, device=dev).expand(above.shape)
     start = _scatter_drop(cap, run_id, is_start, idx)
     stop = _scatter_drop(cap, run_id, is_stop, idx + 1)
 
-    seg = torch.where(above & (run_id < cap), run_id, cap).long()
-    buf = above.shape[:-1] + (cap + 1,)
-    sums = torch.zeros(buf, dtype=dtype, device=dev).scatter_add_(
-        -1, seg, torch.where(above, series, 0).to(dtype)
-    )[..., :cap]
-    cnts = torch.zeros(buf, dtype=I32, device=dev).scatter_add_(-1, seg, above.to(I32))[..., :cap]
-    mean = torch.where(cnts > 0, sums / cnts.clamp(min=1).to(dtype), torch.nan)
+    if dev.type == "cpu":
+        buf = above.shape[:-1] + (cap + 1,)
+        sums = torch.zeros(buf, dtype=dtype, device=dev).scatter_add_(
+            -1, seg, torch.where(above, series, 0).to(dtype)
+        )[..., :cap]
+        cnts = torch.zeros(buf, dtype=I32, device=dev).scatter_add_(-1, seg, above.to(I32))[..., :cap]
+        mean = torch.where(cnts > 0, sums / cnts.clamp(min=1).to(dtype), torch.nan)
+    else:
+        mean = _fixed_point_means(above, series, seg, cap)
 
     return Events(
         start=start,

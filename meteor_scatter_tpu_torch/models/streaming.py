@@ -155,7 +155,9 @@ def _map(fn: Callable, tup):
     return type(tup)(*(fn(x) for x in tup))
 
 
-def stream_init(cfg: StreamConfig, device: DeviceLike = "cuda", dtype=torch.float32) -> StreamState:
+def stream_init(cfg: StreamConfig, dtype=torch.float32, device: DeviceLike = "cuda") -> StreamState:
+    """The state before any block: the reference's parameters, with the
+    device last, as in every function of the port."""
     dev = resolve_device(device)
 
     def f(v):
@@ -184,12 +186,13 @@ def stream_init(cfg: StreamConfig, device: DeviceLike = "cuda", dtype=torch.floa
 
 
 def stream_init_batch(
-    cfg: StreamConfig, n_channels: int, device: DeviceLike = "cuda", dtype=torch.float32
+    cfg: StreamConfig, n_channels: int, dtype=torch.float32, device: DeviceLike = "cuda"
 ) -> StreamState:
     """Per-channel initial state: every :func:`stream_init` leaf gains a
     leading (n_channels,) axis."""
     return _map(
-        lambda x: x.expand((n_channels,) + x.shape).contiguous(), stream_init(cfg, device, dtype)
+        lambda x: x.expand((n_channels,) + x.shape).contiguous(),
+        stream_init(cfg, dtype, device=device),
     )
 
 
@@ -918,10 +921,14 @@ def stream_scan_jump_batch(
     return out if with_diag else out[:3]
 
 
-def resolve_stream_auto(front: str, impl: str, device: DeviceLike) -> Tuple[str, str]:
+def resolve_stream_auto(
+    front: str, impl: str, n_channels: int = 1, device: DeviceLike = "cuda"
+) -> Tuple[str, str]:
     """Resolve ``front``/``impl`` ``"auto"`` for the device the chunk lies
     on: on a CUDA device the bins front and the fused kernel K3, on the CPU
     the welch front and the scan (the formulation the oracles pin).
+    ``n_channels`` (the batch width) is accepted and ignored, as in the
+    reference.
 
     Callers that need the PSD waterfall must pass ``front="welch"``
     explicitly — the bins front computes only the three band levels.
@@ -959,7 +966,7 @@ def stream_process(
     and event boundaries bit-exact against the scan, dB statistics to
     float32 summation order; ``"hop"`` adds ``diags["thr_degraded"]``.
     """
-    front, impl = resolve_stream_auto(front, impl, samples.device)
+    front, impl = resolve_stream_auto(front, impl, device=samples.device)
     if front not in ("welch", "bins"):
         raise ValueError(f"unknown front {front!r} (use 'welch' or 'bins')")
     if impl not in ("scan", "jump", "hop", "fused"):

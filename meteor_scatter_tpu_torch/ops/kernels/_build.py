@@ -83,17 +83,14 @@ def _command(name: str, out: Path) -> list:
     return [_gxx(), *GXX_FLAGS, "-o", str(out), str(src), *GXX_LIBS]
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu`` (or ``.cc``), built first if
-    needed.
+def build(name: str) -> Path:
+    """Build ``csrc/<name>.cu`` (or ``.cc``) unless a build of the same
+    sources and flags is there; returns the library's path.
 
     A failed build raises with the compiler's output.  The build log (for a
     kernel, ptxas' register and spill report) is kept beside the library as
     ``.log``.
     """
-    lib = _libs.get(name)
-    if lib is not None:
-        return lib
     out = library_path(name)
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -107,7 +104,16 @@ def load(name: str) -> ctypes.CDLL:
             )
         out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
-    lib = ctypes.CDLL(str(out))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (or ``.cc``), built first if
+    needed (:func:`build`, which raises on a failed build)."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    lib = ctypes.CDLL(str(build(name)))
     _libs[name] = lib
     return lib
 

@@ -22,6 +22,7 @@ processes (NCCL, gloo, or gloo staged through the host).
 from meteor_scatter_tpu_torch.parallel.distributed import (  # noqa: F401
     init_multihost,
     process_count,
+    process_device,
     process_index,
     row_group,
     transport_for,

@@ -9,6 +9,8 @@ mount with ``--restart=always`` supervision; at cluster scale:
 * :func:`init_multihost` joins the process group when multi-process
   settings are given (arguments, or ``torchrun``'s ``MASTER_ADDR`` /
   ``MASTER_PORT`` / ``WORLD_SIZE`` / ``RANK``); a single process needs none;
+  :func:`process_device` gives each process of a node its own card
+  (``LOCAL_RANK``);
 * :class:`Heartbeat` is a collective liveness check: every process adds its
   device count to an ``all_reduce``; a hung process surfaces as a timeout
   of the collective, a short count as a lost device, and the supervisor
@@ -37,6 +39,21 @@ import torch.distributed as dist
 from meteor_scatter_tpu_torch.device import DeviceLike
 
 
+def process_device(device: DeviceLike = "cuda") -> torch.device:
+    """This process's device of ``device``'s type.  A CUDA device becomes
+    ``cuda:LOCAL_RANK`` when the launcher sets ``LOCAL_RANK`` (``torchrun``:
+    one card per process of a node), made the current device with
+    ``torch.cuda.set_device``; without ``LOCAL_RANK``, or for the CPU,
+    ``device`` is returned as given."""
+    dev = torch.device(device)
+    local = os.environ.get("LOCAL_RANK")
+    if dev.type != "cuda" or local is None:
+        return dev
+    dev = torch.device("cuda", int(local))
+    torch.cuda.set_device(dev)
+    return dev
+
+
 def init_multihost(
     coordinator_address: Optional[str] = None,
     num_processes: Optional[int] = None,
@@ -51,8 +68,10 @@ def init_multihost(
     ``RANK``.  The backend defaults to NCCL for a CUDA ``device`` and gloo
     for the CPU; ``backend="gloo"`` with a CUDA device stages every
     transfer through the host (several processes sharing one card, which
-    NCCL refuses).  Returns True when the process group is active, False
-    for a single process (nothing is initialized)."""
+    NCCL refuses).  With a CUDA device and ``LOCAL_RANK`` set, the process
+    takes ``cuda:LOCAL_RANK`` first (:func:`process_device`).  Returns True
+    when the process group is active, False for a single process (nothing
+    is initialized)."""
     if coordinator_address is None and "MASTER_ADDR" in os.environ and "MASTER_PORT" in os.environ:
         coordinator_address = f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}"
     if num_processes is None:
@@ -66,6 +85,7 @@ def init_multihost(
         raise ValueError(f"unsupported device {device!r} (expected 'cpu' or 'cuda')")
     backend = backend or ("nccl" if kind == "cuda" else "gloo")
     transport_for(backend, kind)  # an unsupported pair raises before anyone waits
+    process_device(device)
     url = coordinator_address if "://" in coordinator_address else f"tcp://{coordinator_address}"
     dist.init_process_group(backend, init_method=url, world_size=num_processes, rank=process_id)
     return True

@@ -22,7 +22,6 @@ checks the global results), e.g. two gloo processes on the CPU::
 from __future__ import annotations
 
 import argparse
-import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -43,7 +42,11 @@ from meteor_scatter_tpu_torch.ops.fir import (
     firwin_bandpass,
     frame_capture_sharded_host,
 )
-from meteor_scatter_tpu_torch.parallel.distributed import init_multihost, process_count
+from meteor_scatter_tpu_torch.parallel.distributed import (
+    init_multihost,
+    process_count,
+    process_device,
+)
 from meteor_scatter_tpu_torch.parallel.mesh import make_mesh
 from meteor_scatter_tpu_torch.parallel.sharded import (
     sharded_channelize_iq,
@@ -204,7 +207,7 @@ def dryrun_multichip(n_devices: int, devices: Optional[Sequence[DeviceLike]] = N
         sc = ev_sh.count.tolist()
         stream_counts[f"{front_i}:{impl_i}"] = sc
         for ch in range(2):
-            _, ev_u, _ = stream_process(cfg_s, stream_init(scfg, dev), xs_t[ch], fs_s,
+            _, ev_u, _ = stream_process(cfg_s, stream_init(scfg, device=dev), xs_t[ch], fs_s,
                                         front=front_i, impl=impl_i)
             c = int(ev_u.count)
             if sc[ch] != c or c < 1:
@@ -261,12 +264,11 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda",
                    help="the device each of the 8 mesh positions repeats: cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.device == "cuda" and "LOCAL_RANK" in os.environ:
-        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
-    init_multihost(device=args.device)
+    dev = process_device(args.device)
+    init_multihost(device=dev)
     try:
         per = 8 // process_count()
-        dryrun_multichip(per * process_count(), devices=[args.device] * per)
+        dryrun_multichip(per * process_count(), devices=[dev] * per)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()

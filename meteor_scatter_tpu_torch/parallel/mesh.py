@@ -25,6 +25,7 @@ local tensors then has ``None`` at the other processes' positions;
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
@@ -32,7 +33,7 @@ import torch
 import torch.distributed as dist
 
 from meteor_scatter_tpu_torch.device import DeviceLike, resolve_device
-from meteor_scatter_tpu_torch.parallel.distributed import Link, row_groups
+from meteor_scatter_tpu_torch.parallel.distributed import Link, process_device, row_groups
 
 STATION_AXIS = "station"
 TIME_AXIS = "time"
@@ -101,8 +102,10 @@ def make_mesh(
 ) -> Mesh:
     """Build a (station, time) mesh.  With ``n_time=None`` the time axis
     absorbs all remaining devices.  ``devices`` defaults to every CUDA
-    device and may repeat a device (a virtual mesh); without CUDA the
-    default raises, there is no fallback to the CPU.
+    device (under a process group with ``LOCAL_RANK`` set, to this
+    process's card, ``cuda:LOCAL_RANK``) and may repeat a device (a virtual
+    mesh); without CUDA the default raises, there is no fallback to the
+    CPU.
 
     Under a process group ``devices`` names this process's devices, every
     process passes as many, and the grid takes every process's list in
@@ -115,7 +118,10 @@ def make_mesh(
                 "make_mesh() defaults to every CUDA device, but torch.cuda.is_available() "
                 "is False; pass devices=['cpu'] * n for a CPU mesh"
             )
-        devices = [torch.device("cuda", k) for k in range(torch.cuda.device_count())]
+        if dist.is_available() and dist.is_initialized() and "LOCAL_RANK" in os.environ:
+            devices = [process_device("cuda")]
+        else:
+            devices = [torch.device("cuda", k) for k in range(torch.cuda.device_count())]
     devices = [_indexed(resolve_device(d)) for d in devices]
     if len({d.type for d in devices}) != 1:
         raise ValueError(f"a mesh's devices must be of one type, got {devices}")

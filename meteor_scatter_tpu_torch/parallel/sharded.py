@@ -409,7 +409,7 @@ def sharded_stream_process(
                 f"samples per time shard ({S}/{n_time}) must be a whole "
                 f"number of {block}-sample blocks"
             )
-    front, impl = streaming.resolve_stream_auto(front, impl, mesh.device)
+    front, impl = streaming.resolve_stream_auto(front, impl, device=mesh.device)
     if front not in ("welch", "bins"):
         raise ValueError(f"unknown front {front!r} (use 'welch' or 'bins')")
     solvers = {"scan": streaming.stream_scan, "jump": streaming.stream_scan_jump,
@@ -419,7 +419,7 @@ def sharded_stream_process(
     solve = solvers[impl]
     scfg = streaming.StreamConfig.from_config(cfg)
     if state is None:
-        state = streaming.stream_init_batch(scfg, n_ch, mesh.device)
+        state = streaming.stream_init_batch(scfg, n_ch, device=mesh.device)
     headless = front == "bins"
     front_fn = streaming.stream_front_headless if headless else streaming.stream_front
 

@@ -190,3 +190,49 @@ class TestChunkedDriver:
         assert ev_c.capacity == 4 and int(ev_c.count) == 4 and bool(ev_c.overflow)
         ev_x, _ = self.run_chunked(d, monkeypatch, cap=64, **kw)
         assert torch.equal(ev_c.start, ev_x.start[:4])
+
+
+class TestFixedPointWindowSums:
+    """The fixpoint's window sums on a card: int64 fixed point
+    (``window_sums_fixed_point``), here run on the CPU."""
+
+    def test_matches_float64_windows(self):
+        """Within one float32 ulp of the float64 window sums (the exact sum
+        of values quantized to 2^-(k+1), k >= 30 here, rounded once)."""
+        d = torch.from_numpy(np.stack([series(6000, s) for s in (1, 2)]))
+        n, w = d.shape[-1], KW["window_blocks"]
+        i = torch.arange(n)
+        lo = torch.clamp(i - w, min=0)
+        for x in (d, d * d):  # the window's sums of d and of d²
+            cs = np.concatenate([np.zeros((2, 1)), np.cumsum(x.double().numpy(), -1)], -1)
+            ref = cs[:, i] - cs[:, lo]
+            got = tad.window_sums_fixed_point(x, lo, i).numpy()
+            assert got.dtype == np.float32
+            assert (np.abs(got - ref) <= np.spacing(np.abs(ref).astype(np.float32))).all()
+
+    def test_non_finite_as_the_float_prefix_difference(self):
+        d = torch.from_numpy(np.stack([series(2000, s) for s in (3, 4, 5)]))
+        d[0, 100] = np.inf
+        d[1, 700] = np.nan
+        d[2, 300], d[2, 1500] = -np.inf, np.inf
+        i = torch.arange(2000)
+        lo = torch.clamp(i - 300, min=0)
+        got = tad.window_sums_fixed_point(d, lo, i)
+        want = tad._window_sums(d, lo, i)  # the CPU's float prefix difference
+        fin = torch.isfinite(want)
+        assert torch.equal(fin, torch.isfinite(got)) and int((~fin).sum()) > 1000
+        assert torch.equal(torch.nan_to_num(got[~fin], nan=7.0), torch.nan_to_num(want[~fin], nan=7.0))
+
+    @pytest.mark.parametrize("seed", [31, 32])
+    def test_fixpoint_on_the_card_route_equals_cpu_and_jax(self, seed, monkeypatch):
+        """``adaptive_thresholds_parallel`` with the card's window sums: the
+        same above mask and events as the CPU route and as JAX, thresholds
+        within ``THR_RTOL``."""
+        d = series(5000, seed, n_bursts=30)
+        want_thr, want_above = tad.adaptive_thresholds_parallel(torch.from_numpy(d), **KW)
+        monkeypatch.setattr(tad, "_window_sums", tad.window_sums_fixed_point)
+        thr, above = tad.adaptive_thresholds_parallel(torch.from_numpy(d), **KW)
+        np.testing.assert_array_equal(above.numpy(), want_above.numpy())
+        np.testing.assert_allclose(thr.numpy(), want_thr.numpy(), rtol=THR_RTOL)
+        j_thr, j_above = jad.adaptive_thresholds_parallel(jnp.asarray(d), **KW)
+        np.testing.assert_array_equal(above.numpy(), np.asarray(j_above))

@@ -232,17 +232,15 @@ def test_jax_free_import_and_run(tmp_path):
         assert out.getvalue().count("Critical bursts this segment") == 2, out.getvalue()
         assert len(os.listdir(sys.argv[1] + "/png")) >= 1
         assert "20260817.csv" in os.listdir(sys.argv[1] + "/csv")
-        out = io.StringIO()
-        with contextlib.redirect_stdout(out):
+        pump_out = io.StringIO()
+        with contextlib.redirect_stdout(pump_out):  # on the wall clock, as the JAX CLI's pump
             assert monitor.main(["--wav", path, "--pump", "--device", "cpu",
                                  "--csv-out", sys.argv[1] + "/csv_pump", "--spec-out",
-                                 sys.argv[1] + "/png_pump", "--start-time", "2026-08-17T12:00:00"]) == 0
-        for d in ("csv", "png"):
-            names = sorted(os.listdir(sys.argv[1] + "/" + d))
-            assert names == sorted(os.listdir(sys.argv[1] + "/" + d + "_pump")), d
-            for n in names:
-                with open(f"{sys.argv[1]}/{d}/{n}", "rb") as a, open(f"{sys.argv[1]}/{d}_pump/{n}", "rb") as b:
-                    assert a.read() == b.read(), n
+                                 sys.argv[1] + "/png_pump"]) == 0
+        counts = [ln for ln in out.getvalue().splitlines() if "bursts this segment" in ln]
+        assert counts == [ln for ln in pump_out.getvalue().splitlines() if "bursts this segment" in ln]
+        assert len(os.listdir(sys.argv[1] + "/png_pump")) == len(os.listdir(sys.argv[1] + "/png"))
+        assert ".offset.json" not in os.listdir(sys.argv[1] + "/csv_pump")  # no position, no journal
         from meteor_scatter_tpu_torch.config import DashboardConfig
         from meteor_scatter_tpu_torch.dashboard.app import DashboardApp
         app = DashboardApp(DashboardConfig(csv_folder=sys.argv[1] + "/csv",

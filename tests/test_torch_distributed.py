@@ -58,3 +58,90 @@ def test_two_process_gloo(tmp_path):
              join=True)
     got = [(tmp_path / f"rank{r}").read_text() for r in range(2)]
     assert got == ["True 0 2 (0, 32)", "True 1 2 (32, 63)"]
+
+
+# --- one card per local rank (LOCAL_RANK) ----------------------------------------
+
+
+@pytest.fixture
+def fake_cards(monkeypatch):
+    """``torch.cuda`` of a machine with 4 cards, recording ``set_device``."""
+    taken = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: taken.append(torch.device(d)))
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda d=None: "fake card")
+    return taken
+
+
+def test_process_device_takes_local_rank(fake_cards, monkeypatch):
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    assert tdist.process_device("cuda") == torch.device("cuda") and fake_cards == []
+    assert tdist.process_device("cpu") == torch.device("cpu")
+    monkeypatch.setenv("LOCAL_RANK", "3")
+    assert tdist.process_device("cuda") == torch.device("cuda", 3)
+    assert tdist.process_device("cpu") == torch.device("cpu")
+    assert fake_cards == [torch.device("cuda", 3)]
+    monkeypatch.setenv("LOCAL_RANK", "0")  # a one-card machine: cuda:0, as without it
+    assert tdist.process_device("cuda") == torch.device("cuda", 0)
+
+
+def test_init_multihost_sets_the_local_card_first(fake_cards, monkeypatch):
+    calls = []
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda backend, **kw: calls.append((backend, list(fake_cards), kw)))
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    assert tdist.init_multihost("localhost:1", 2, 1, device="cuda")
+    assert calls == [("nccl", [torch.device("cuda", 1)],
+                      dict(init_method="tcp://localhost:1", world_size=2, rank=1))]
+    monkeypatch.delenv("LOCAL_RANK")
+    fake_cards.clear()
+    assert tdist.init_multihost("localhost:1", 2, 1, device="cuda")
+    assert fake_cards == []  # without LOCAL_RANK nothing changes
+    assert tdist.init_multihost("localhost:1", 2, 0, device="cpu") and fake_cards == []
+
+
+@pytest.mark.parametrize("local_rank", [None, "2"])
+def test_make_mesh_default_under_a_group(fake_cards, monkeypatch, tmp_path, local_rank):
+    """Under a process group the default is this process's card with
+    ``LOCAL_RANK``, every card without it (as before)."""
+    from meteor_scatter_tpu_torch.parallel import mesh as tmesh
+
+    if local_rank is None:
+        monkeypatch.delenv("LOCAL_RANK", raising=False)
+    else:
+        monkeypatch.setenv("LOCAL_RANK", local_rank)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", world_size=1, rank=0)
+    try:
+        m = tmesh.make_mesh(1)
+        want = [torch.device("cuda", k) for k in range(4)] if local_rank is None else [
+            torch.device("cuda", 2)]
+        assert list(m.devices[0]) == want
+        assert m.transport == "gloo-host-staged"
+        assert fake_cards == ([] if local_rank is None else [torch.device("cuda", 2)])
+    finally:
+        dist.destroy_process_group()
+
+
+def test_child_and_bench_take_the_local_card(fake_cards, monkeypatch):
+    import importlib.util
+
+    import torch_multiproc_child as child
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_scaling_bench",
+        os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools",
+                     "torch_scaling_bench.py"))
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+
+    monkeypatch.setenv("LOCAL_RANK", "2")
+    assert child.positions("cuda", 2) == [torch.device("cuda", 2)] * 2
+    assert child.positions("cpu", 2) == ["cpu", "cpu"]
+    assert bench.local_devices("cuda", None) == (["cuda:2"], "fake card")
+    assert bench.local_devices("cuda", 3) == (["cuda:2"] * 3, "fake card")
+    monkeypatch.delenv("LOCAL_RANK")
+    assert bench.local_devices("cuda", None) == ([f"cuda:{k}" for k in range(4)], "fake card")
+    assert bench.local_devices("cuda", 6)[0] == ["cuda:0", "cuda:1", "cuda:2", "cuda:3",
+                                                 "cuda:0", "cuda:1"]
+    assert bench.local_devices("cpu", None) == (["cpu"], "cpu")

@@ -119,13 +119,13 @@ def fixture_scan(name):
     changes, n, seed, bursts = FIXTURES[name]
     scfg = tcfg(**changes)
     on, pm = series(n, seed, bursts)
-    return scfg, on, pm, tst.stream_scan(scfg, tst.stream_init(scfg, "cpu"), on, pm)
+    return scfg, on, pm, tst.stream_scan(scfg, tst.stream_init(scfg, device="cpu"), on, pm)
 
 
 @pytest.mark.parametrize("solver_name,fixture", CASES)
 def test_episode_solver_equals_scan(solver_name, fixture):
     scfg, on, pm, want = fixture_scan(fixture)
-    got = solver(solver_name)(scfg, tst.stream_init(scfg, "cpu"), on, pm)
+    got = solver(solver_name)(scfg, tst.stream_init(scfg, device="cpu"), on, pm)
     assert_equals_scan(scfg, want, got, TOL[solver_name])
     count, st = int(want[1].count), int(want[0].state)
     if fixture == "noise_only":
@@ -144,7 +144,7 @@ def test_episode_solver_chunked_carry(solver_name):
     windows; every chunk equals the scan's from the same carried state."""
     scfg = tcfg()
     on, pm = series(910, 4, ((100, 110, 8.0), (400, 412, 6.0), (640, 650, 7.0)))
-    st_s = st_g = tst.stream_init(scfg, "cpu")
+    st_s = st_g = tst.stream_init(scfg, device="cpu")
     total = 0
     for i in range(0, 900, 30):
         want = tst.stream_scan(scfg, st_s, on[i : i + 30], pm[i : i + 30])
@@ -172,8 +172,8 @@ def test_episode_solver_fuzz(solver_name, seed):
     n = int(rng.integers(200, 700))
     on, pm = series(n, seed + 100, noise=1.0)
     hop = int(rng.choice([8, 32, 128]))
-    want = tst.stream_scan(scfg, tst.stream_init(scfg, "cpu"), on, pm)
-    got = solver(solver_name, hop)(scfg, tst.stream_init(scfg, "cpu"), on, pm)
+    want = tst.stream_scan(scfg, tst.stream_init(scfg, device="cpu"), on, pm)
+    got = solver(solver_name, hop)(scfg, tst.stream_init(scfg, device="cpu"), on, pm)
     assert_equals_scan(scfg, want, got, TOL[solver_name])
 
 
@@ -187,15 +187,15 @@ def test_wide_batch_equals_per_channel(solver_name):
              for c in range(C)]
     on, pm = torch.stack([p[0] for p in pairs]), torch.stack([p[1] for p in pairs])
     fn = solver(solver_name)
-    st_b, ev_b, thr_b = fn(scfg, tst.stream_init_batch(scfg, C, "cpu"), on, pm)
+    st_b, ev_b, thr_b = fn(scfg, tst.stream_init_batch(scfg, C, device="cpu"), on, pm)
     assert int(ev_b.count.sum()) >= 3
     for c in range(C):
-        st_1, ev_1, thr_1 = fn(scfg, tst.stream_init(scfg, "cpu"), on[c], pm[c])
+        st_1, ev_1, thr_1 = fn(scfg, tst.stream_init(scfg, device="cpu"), on[c], pm[c])
         for name, a, b in ([("thresholds", thr_b[c], thr_1)]
                            + [(f, x[c], y) for f, x, y in zip(ev_b._fields, ev_b, ev_1)]
                            + [(f, x[c], y) for f, x, y in zip(st_b._fields, st_b, st_1)]):
             assert_bits_equal(a, b, f"{name} ch{c}")
-        want = tst.stream_scan(scfg, tst.stream_init(scfg, "cpu"), on[c], pm[c])
+        want = tst.stream_scan(scfg, tst.stream_init(scfg, device="cpu"), on[c], pm[c])
         assert_equals_scan(scfg, want, (st_1, ev_1, thr_1), TOL[solver_name])
 
 
@@ -208,11 +208,11 @@ def pathological():
 
 def test_thr_degraded_flag():
     scfg, on, pm = pathological()
-    st, ev, thr, diag = tst.stream_scan_jump_batch(scfg, tst.stream_init(scfg, "cpu"), on, pm,
+    st, ev, thr, diag = tst.stream_scan_jump_batch(scfg, tst.stream_init(scfg, device="cpu"), on, pm,
                                                    with_diag=True)
     assert diag["thr_degraded"].dtype == torch.bool and bool(diag["thr_degraded"])
     # events and state stay exact against the scan (only thresholds degrade)
-    st_s, ev_s, _ = tst.stream_scan(scfg, tst.stream_init(scfg, "cpu"), on, pm)
+    st_s, ev_s, _ = tst.stream_scan(scfg, tst.stream_init(scfg, device="cpu"), on, pm)
     assert int(ev.count) == int(ev_s.count)
     for f in jj.EXACT_EV:
         assert_bits_equal(getattr(ev, f), getattr(ev_s, f), f)
@@ -220,9 +220,9 @@ def test_thr_degraded_flag():
         assert_bits_equal(getattr(st, f), getattr(st_s, f), f)
 
     scfg, on, pm, _ = fixture_scan("bursty")
-    out4 = tst.stream_scan_jump_batch(scfg, tst.stream_init(scfg, "cpu"), on, pm, with_diag=True)
+    out4 = tst.stream_scan_jump_batch(scfg, tst.stream_init(scfg, device="cpu"), on, pm, with_diag=True)
     assert not bool(out4[3]["thr_degraded"])
-    out3 = tst.stream_scan_jump_batch(scfg, tst.stream_init(scfg, "cpu"), on, pm)
+    out3 = tst.stream_scan_jump_batch(scfg, tst.stream_init(scfg, device="cpu"), on, pm)
     assert len(out3) == 3
     assert_bits_equal(out3[2], out4[2], "thresholds")
 
@@ -234,7 +234,7 @@ def test_stream_process_diags_schema(impl):
     (JAX's empty-chunk path, which runs no solver)."""
     cfg, jcfg = DetectionConfig(**LIVE), JDetectionConfig(**LIVE)
     x = (np.random.default_rng(9).standard_normal(FS * 20) * 0.05).astype(np.float32)
-    st0 = tst.stream_init(tst.StreamConfig.from_config(cfg), "cpu")
+    st0 = tst.stream_init(tst.StreamConfig.from_config(cfg), device="cpu")
     st, ev, full = tst.stream_process(cfg, st0, torch.from_numpy(x), FS, front="bins", impl=impl)
     want = tst.stream_process(cfg, st0, torch.from_numpy(x), FS, front="bins", impl="scan")
     assert_bits_equal(full["threshold"], want[2]["threshold"], "thresholds")
@@ -304,7 +304,7 @@ def test_episode_solver_matches_jax(name, fixture):
         scfg, on, pm = pathological()
     t_fn = tst.stream_scan_jump if name == "jump" else functools.partial(
         tst.stream_scan_jump_batch, with_diag=True)
-    got = t_fn(scfg, tst.stream_init(scfg, "cpu"), on, pm)
+    got = t_fn(scfg, tst.stream_init(scfg, device="cpu"), on, pm)
     want = jax_run(name, fixture)
     assert_matches_jax(got, want)
     if fixture == "bursty":

@@ -196,3 +196,103 @@ class TestFixedDetector:
         for k in range(4):
             assert (int(ev.start[k]), int(ev.stop[k])) == (10 * k, 10 * k + 3)
             assert float(ev.db_mean[k]) == 100.0
+
+
+# --- the fixed-point run means (the route on CUDA) -----------------------------
+
+# fixed_point_run_means against a float64 numpy mean of each run: the exact
+# mean of the quantized values (each within 2^-(k+1), k >= 30 here) rounded
+# once to float32, so within one float32 ulp of the float64 mean.
+FP_ULPS = 1
+
+
+def run_means_f64(above, series):
+    """Per maximal run of ``above``: the float64 mean of ``series``."""
+    edges = np.flatnonzero(np.diff(np.r_[0, above.astype(np.int8), 0]))
+    return np.array([series[a:b].astype(np.float64).mean() for a, b in zip(edges[::2], edges[1::2])])
+
+
+class TestFixedPointRunMeans:
+    @pytest.mark.parametrize("n,seed", [(500, 1), (20_000, 2), (131_072, 3)])
+    def test_matches_float64_runs(self, n, seed):
+        rng = np.random.default_rng(seed)
+        above = random_mask(n, seed) if n <= 20_000 else rng.random(n) < 0.6
+        series = (rng.standard_normal(n) * 3 + 10).astype(np.float32)
+        cap = int(above.sum()) + 1
+        got = tev.fixed_point_run_means(torch.from_numpy(above), torch.from_numpy(series), cap).numpy()
+        ref = run_means_f64(above, series)
+        k = len(ref)
+        assert got.dtype == np.float32 and np.isnan(got[k:]).all()
+        assert (np.abs(got[:k] - ref) <= FP_ULPS * np.spacing(np.abs(ref).astype(np.float32))).all()
+
+    def test_batch_rows_are_independent(self):
+        """A batch is taken row by row: each row's scale is its own, so a
+        row's means do not depend on the other rows."""
+        rng = np.random.default_rng(4)
+        above = torch.from_numpy(rng.random((3, 4000)) < 0.5)
+        scales = np.array([[1.0], [100.0], [1e-3]])
+        series = torch.from_numpy((rng.standard_normal((3, 4000)) * scales).astype(np.float32))
+        batch = tev.fixed_point_run_means(above, series, 2500)
+        for r in range(3):
+            np.testing.assert_array_equal(
+                tev.fixed_point_run_means(above[r], series[r], 2500).view(torch.int32).numpy(),
+                batch[r].view(torch.int32).numpy())
+
+    def test_non_finite_runs_give_the_float_mean(self):
+        """A run with a NaN, or with both infinities, is NaN; with one
+        infinity, that infinity: what the float32 sum of the CPU path gives."""
+        above = np.zeros(60, bool)
+        series = np.random.default_rng(6).standard_normal(60).astype(np.float32)
+        runs = [(0, 5), (10, 15), (20, 25), (30, 35), (40, 45), (50, 55)]
+        for a, b in runs:
+            above[a:b] = True
+        series[12] = np.nan
+        series[21] = np.inf
+        series[31], series[33] = np.inf, -np.inf
+        series[43] = -np.inf
+        series[44] = np.inf  # a run's last block
+        series[7] = np.nan  # outside every run: no effect
+        t_above, t_series = torch.from_numpy(above), torch.from_numpy(series)
+        got = tev.fixed_point_run_means(t_above, t_series, 8).numpy()
+        f32 = tev.events_from_mask(t_above, t_series, 8).db_mean.numpy()
+        want = [np.nan, np.inf, np.nan, np.nan]
+        np.testing.assert_array_equal(got[1:5], want)
+        np.testing.assert_array_equal(f32[1:5], want)  # the float path agrees
+        ref = np.array([series[a:b].astype(np.float64).mean() for a, b in (runs[0], runs[5])])
+        assert (np.abs(got[[0, 5]] - ref) <= FP_ULPS * np.spacing(np.abs(ref).astype(np.float32))).all()
+
+    def test_overflow_guard_raises(self):
+        """n·max|x| at or past 2^61 cannot keep a scale of at least 1: the
+        helper raises, with no float fallback."""
+        above = torch.ones(100, dtype=torch.bool)
+        big = torch.full((100,), 1e17, dtype=torch.float32)  # 100 · 1e17 > 2^61
+        with pytest.raises(ValueError, match="2\\^61"):
+            tev.fixed_point_run_means(above, big, 4)
+        with pytest.raises(ValueError, match="2\\^61"):
+            tev.to_fixed_point(big)
+        q, scale = tev.to_fixed_point(torch.full((100,), 1.5e16))  # 1.5e18 in [2^60, 2^61): k = 0
+        assert q.dtype == torch.int64 and float(scale) == 1.0
+
+    def test_to_fixed_point_scale(self):
+        x = torch.tensor([[3.0, -2.5, 0.25], [0.0, 0.0, 0.0]])
+        q, scale = tev.to_fixed_point(x)
+        # 3 · 3 = 9 < 2^4: k = 57; a zero row keeps k = 61
+        assert scale.shape == (2, 1) and scale.dtype == torch.float64
+        assert scale[:, 0].tolist() == [2.0 ** 57, 2.0 ** 61]
+        assert q[0].tolist() == [3 * 2 ** 57, -5 * 2 ** 56, 2 ** 55] and q[1].tolist() == [0, 0, 0]
+        # an empty series: no runs, every slot NaN, as on the float path
+        empty = torch.zeros(0, dtype=torch.bool), torch.zeros(0)
+        assert tev.to_fixed_point(empty[1])[0].shape == (0,)
+        assert torch.isnan(tev.fixed_point_run_means(*empty, 3)).all()
+        assert torch.isnan(tev.events_from_mask(*empty, 3).db_mean).all()
+
+    @pytest.mark.parametrize("name", sorted(MASKS))
+    def test_cpu_path_equals_jax_bit_for_bit(self, name):
+        """The CPU keeps the float ``scatter_add_``: bit for bit the JAX
+        ``segment_sum``'s means."""
+        above = MASKS[name]
+        series = np.random.default_rng(3).standard_normal(len(above)).astype(np.float32)
+        t_ev = tev.events_from_mask(torch.from_numpy(above), torch.from_numpy(series), 64)
+        j_ev = j_events_from_mask(jnp.asarray(above), jnp.asarray(series), 64)
+        np.testing.assert_array_equal(t_ev.db_mean.view(torch.int32).numpy(),
+                                      np.asarray(j_ev.db_mean).view(np.int32))

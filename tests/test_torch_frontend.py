@@ -203,7 +203,7 @@ def test_at_spec_iq_chain_matches_jax():
                                decim, numtaps)
     assert same_bits(audio, flat)
     on, pm, _ = tst.stream_front_headless(cfg_t, audio, audio_rate)
-    st0 = tst.stream_init_batch(scfg_t, len(freqs), "cpu")
+    st0 = tst.stream_init_batch(scfg_t, len(freqs), device="cpu")
     st_t, ev_t, thr_t = tst.stream_scan(scfg_t, st0, on, pm)
     st_f, ev_f, thr_f = tst.stream_scan_fused_batch(scfg_t, st0, on, pm)
     assert all(same_bits(a, b) for a, b in zip((*st_t, *ev_t, thr_t), (*st_f, *ev_f, thr_f)))

@@ -95,23 +95,52 @@ def test_pump_matches_jax_pump(mon_wav, tmp_path, monkeypatch):
     (csv_t, spec_t, out_t), (csv_j, spec_j, out_j) = dirs["t"], dirs["j"]
     counts = re.compile(r"^(?:Non-c|C)ritical bursts this segment: \d+$", re.M)
     assert counts.findall(out_t) == counts.findall(out_j) and len(counts.findall(out_t)) == 12
-    # the JAX pump source has no position, so it keeps no offset journal
-    ledger = [n for n in dir_files(csv_j)]
-    assert ledger == [n for n in dir_files(csv_t) if n != ".offset.json"]
+    # neither pump source has a position, so neither keeps an offset journal
+    ledger = dir_files(csv_j)
+    assert ledger == dir_files(csv_t) and ".offset.json" not in ledger
     for n in ledger:
         assert read_bytes(os.path.join(csv_t, n)) == read_bytes(os.path.join(csv_j, n)), n
     assert_same_bytes(spec_t, spec_j)
     assert len(dir_files(spec_t)) == 6
 
 
+class AudioClock:
+    """A source wrapper whose clock follows the segments it has handed out
+    (``seconds_per_segment`` simulated seconds each), as ``--start-time``
+    does for a positioned source; it hides the source's position, so
+    ``run_monitor`` journals no offset for either source."""
+
+    def __init__(self, source, start, seconds_per_segment):
+        self.source, self.start, self.step, self.n = source, start, seconds_per_segment, 0
+
+    def grab(self):
+        seg = self.source.grab()
+        self.n += seg is not None
+        return seg
+
+    def now(self):
+        return self.start + datetime.timedelta(seconds=self.n * self.step)
+
+
 def test_pump_equals_wav_source(mon_wav, tmp_path):
-    """On the audio timeline (``--start-time``, 40 simulated seconds a
-    second: hourly flushes and a midnight rotation) the pump gives the WAV
-    source's segments bit for bit: the same ledger, journals and PNGs byte
-    for byte."""
-    extra = ["--start-time", "2026-08-16T23:57:00", "--time-scale", "40"]
-    csv_p, spec_p, _ = run_monitor_cli(tmon, mon_wav, tmp_path / "pump", ["--pump", *extra])
-    csv_w, spec_w, _ = run_monitor_cli(tmon, mon_wav, tmp_path / "wav", extra)
+    """On an injected audio-timeline clock (40 simulated seconds a second:
+    hourly flushes and a midnight rotation) the pump gives the WAV source's
+    segments bit for bit: the same ledger, journals and PNGs byte for
+    byte."""
+    start = datetime.datetime(2026, 8, 16, 23, 57)
+    out = {}
+    for name, cls in (("pump", tmon.PumpSegmentSource), ("wav", tmon.WavSegmentSource)):
+        cfg = tmon.MonitorConfig(csv_out_dir=str(tmp_path / name / "csv"),
+                                 spec_out_dir=str(tmp_path / name / "spec"))
+        src = cls(mon_wav, cfg)
+        clock = AudioClock(src, start, 30 * 40)
+        try:
+            quiet(tmon.run_monitor, clock, cfg, now_fn=clock.now, device="cpu")
+        finally:
+            if name == "pump":
+                src.close()
+        out[name] = cfg.csv_out_dir, cfg.spec_out_dir
+    (csv_p, spec_p), (csv_w, spec_w) = out["pump"], out["wav"]
     assert_same_bytes(csv_p, csv_w)
     assert_same_bytes(spec_p, spec_w)
     for day in ("20260816", "20260817"):
@@ -129,14 +158,16 @@ def test_pump_source_segments_and_resume_refused(mon_wav, tmp_path):
         for k in range(6):
             a, b = pump.grab(), wav.grab()
             assert a.dtype == np.float32 and np.array_equal(a, b.astype(np.float32)), k
-            assert pump.pos == wav.pos == (k + 1) * MON_FS * 30
+            assert wav.pos == (k + 1) * MON_FS * 30
         assert pump.grab() is None and wav.grab() is None
         assert pump.ring.dropped() == 0
     finally:
         pump.close()
-    with pytest.raises(SystemExit):  # argparse error, as in the JAX CLI
-        quiet(tmon.main, ["--wav", mon_wav, "--pump", "--resume", "--device", "cpu",
-                          "--csv-out", str(tmp_path / "c")])
+    assert not hasattr(pump, "pos")  # as in the JAX package: no position
+    for flags in (["--resume"], ["--start-time", "2026-08-16T21:00:00"]):
+        with pytest.raises(SystemExit):  # argparse errors, as in the JAX CLI
+            quiet(tmon.main, ["--wav", mon_wav, "--pump", *flags, "--device", "cpu",
+                              "--csv-out", str(tmp_path / "c")])
     with pytest.raises(ValueError, match="expected 6000 Hz"):
         tmon.PumpSegmentSource(mon_wav, tmon.MonitorConfig(sample_rate=6000))
 
@@ -192,7 +223,7 @@ def two_feeds():
     events)."""
     cfg = DetectionConfig(n_fft=1024, **LIVE)
     x = torch.from_numpy(make_audio(LIVE_FS, dur=24.0))
-    state = stream_init(StreamConfig.from_config(cfg), "cpu")
+    state = stream_init(StreamConfig.from_config(cfg), device="cpu")
     feeds, block = [], 0
     for part in x.split(12 * LIVE_FS):
         state, ev, diags = stream_process(cfg, state, part, LIVE_FS, impl="scan")

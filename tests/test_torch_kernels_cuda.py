@@ -295,7 +295,7 @@ def alternating_inputs(n, dev):
 
 
 def carried_state(scfg, on, pm, n_before):
-    return tst.stream_scan(scfg, tst.stream_init_batch(scfg, on.shape[0], on.device),
+    return tst.stream_scan(scfg, tst.stream_init_batch(scfg, on.shape[0], device=on.device),
                            on[:, :n_before], pm[:, :n_before])[0]
 
 
@@ -328,7 +328,7 @@ def assert_solve_equals_twin(state, on, pm, scfg=STREAM_CFG, **kw):
 @pytest.mark.parametrize("C,n", [(1, 300), (64, 3000), (130, 1100)])
 def test_stream_machine_fresh_state_bit_exact(cuda, C, n):
     on, pm = stream_inputs(C, n, C, cuda)
-    ev = assert_solve_equals_twin(tst.stream_init_batch(STREAM_CFG, C, cuda), on, pm)
+    ev = assert_solve_equals_twin(tst.stream_init_batch(STREAM_CFG, C, device=cuda), on, pm)
     assert int(ev.count.sum()) > 0  # events were emitted
 
 
@@ -382,7 +382,7 @@ def test_stream_solve_seams_bit_exact(cuda, seam):
 def test_stream_solve_tiles_bit_exact(cuda, C, n, tile):
     on, pm = stream_inputs(C, n, n, cuda)
     on[:, n // 2 - 20 : n // 2 + 45] += 9.0  # a 65-block track across tiles
-    ev = assert_solve_equals_twin(tst.stream_init_batch(STREAM_CFG, C, cuda), on, pm, tile=tile)
+    ev = assert_solve_equals_twin(tst.stream_init_batch(STREAM_CFG, C, device=cuda), on, pm, tile=tile)
     assert int(ev.count.min()) > 0
 
 
@@ -392,14 +392,14 @@ def test_stream_solve_alternating_and_overflow(cuda):
     and a small event buffer that overflows."""
     scfg = STREAM_CFG._replace(cap=16, min_dur_sec=0.2)
     on, pm = alternating_inputs(700, cuda)
-    ev = assert_solve_equals_twin(tst.stream_init_batch(scfg, 2, cuda), on, pm, scfg)
+    ev = assert_solve_equals_twin(tst.stream_init_batch(scfg, 2, device=cuda), on, pm, scfg)
     assert int(ev.count[1]) > 16 and bool(ev.overflow[1]) and not bool(ev.overflow[0])
 
 
 @pytest.mark.cuda
 def test_stream_fused_equals_scan_on_card(cuda):
     on, pm = stream_inputs(64, 1100, 5, cuda)
-    st0 = tst.stream_init_batch(STREAM_CFG, 64, cuda)
+    st0 = tst.stream_init_batch(STREAM_CFG, 64, device=cuda)
     out_f = tst.stream_scan_fused_batch(STREAM_CFG, st0, on, pm)
     out_s = tst.stream_scan(STREAM_CFG, st0, on, pm)
     for part_f, part_s in zip(out_f[:2], out_s[:2]):
@@ -441,7 +441,7 @@ def test_sharded_fused_launches_k3_per_mesh_position(cuda):
     assert tsk.launches == before + 8
     scfg = tst.StreamConfig.from_config(cfg)
     on = dg["over_noise"]
-    st_s, ev_s, thr_s = tst.stream_scan(scfg, tst.stream_init_batch(scfg, 2, cuda), on,
+    st_s, ev_s, thr_s = tst.stream_scan(scfg, tst.stream_init_batch(scfg, 2, device=cuda), on,
                                         torch.zeros_like(on))
     for a, b in zip((*st, *ev, dg["threshold"]), (*st_s, *ev_s, thr_s)):
         assert_bits_equal(a, b, "sharded K3 against the twin")
@@ -461,8 +461,8 @@ def test_stream_fused_launches_only_k3(cuda):
     from torch.profiler import ProfilerActivity, profile
 
     on, pm = stream_inputs(8, 600, 9, cuda)
-    st0 = tst.stream_init_batch(STREAM_CFG, 8, cuda)
-    st1 = tst.stream_init(STREAM_CFG, cuda)
+    st0 = tst.stream_init_batch(STREAM_CFG, 8, device=cuda)
+    st1 = tst.stream_init(STREAM_CFG, device=cuda)
     tst.stream_scan_fused_batch(STREAM_CFG, st0, on, pm)  # build outside the profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -477,7 +477,7 @@ def test_stream_fused_launches_only_k3(cuda):
 @pytest.mark.cuda
 def test_stream_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     on, pm = stream_inputs(4, 50, 1, cuda)
-    state = tuple(tst.stream_init_batch(STREAM_CFG, 4, cuda))
+    state = tuple(tst.stream_init_batch(STREAM_CFG, 4, device=cuda))
     params = tst.solve_params(STREAM_CFG)
     bad = [
         (0, on.cpu()),  # device

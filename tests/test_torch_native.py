@@ -281,3 +281,30 @@ def test_failed_build_reports_once_and_falls_back(monkeypatch, capsys):
     err = capsys.readouterr().err
     assert err.count("g++ failed building ms_native") == 1 and "error: oops" in err
     assert not tnative.PcmRing(64).native
+
+
+def test_build_native_and_load_without_auto_build(monkeypatch, tmp_path, capsys):
+    """``build_native(quiet)`` and ``load_native(auto_build)`` take the
+    reference's parameters; without a build, ``auto_build=False`` gives None
+    and leaves a later call free to build."""
+    import inspect
+
+    for name in ("build_native", "load_native"):
+        assert (list(inspect.signature(getattr(tnative, name)).parameters.items()) ==
+                list(inspect.signature(getattr(jnative, name)).parameters.items())), name
+    assert tnative.build_native() is True
+    assert tnative.load_native(auto_build=False) is not None  # built: it loads
+
+    monkeypatch.setattr(tnative, "_lib", None)
+    monkeypatch.setattr(tnative, "_tried", False)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "empty")
+    monkeypatch.setattr(_build, "_libs", {})
+    assert tnative.load_native(auto_build=False) is None and tnative._tried is False
+
+    def no_compiler():
+        raise RuntimeError("g++ not found: put a C++ compiler on PATH")
+
+    monkeypatch.setattr(_build, "_gxx", no_compiler)
+    assert tnative.build_native() is False and capsys.readouterr().err == ""
+    assert tnative.build_native(quiet=False) is False
+    assert "g++ not found" in capsys.readouterr().err

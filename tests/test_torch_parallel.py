@@ -370,7 +370,7 @@ def test_sharded_stream_process_equals_unsharded(mesh, front, impl):
     x = stream_audio(11 if front == "welch" else 13)
     got = tsh.sharded_stream_process(CFG, None, t(x), STREAM_FS, mesh, front=front, impl=impl)
     scfg = tst.StreamConfig.from_config(CFG)
-    want = [tst.stream_process(CFG, tst.stream_init(scfg, "cpu"), t(x[c]), STREAM_FS,
+    want = [tst.stream_process(CFG, tst.stream_init(scfg, device="cpu"), t(x[c]), STREAM_FS,
                                front=front, impl=impl) for c in range(2)]
     assert all(int(w[1].count) >= 1 for w in want), "fixture must produce events"
     assert ("psd_db" in got[2]) == (front == "welch")
@@ -411,7 +411,7 @@ def test_sharded_stream_chunked_carry(mesh):
     scfg = tst.StreamConfig.from_config(CFG)
     want = []
     for c in range(2):
-        _, ev_u, _ = tst.stream_process(CFG, tst.stream_init(scfg, "cpu"), t(x[c]), STREAM_FS)
+        _, ev_u, _ = tst.stream_process(CFG, tst.stream_init(scfg, device="cpu"), t(x[c]), STREAM_FS)
         want += [(c, float(ev_u.time_start[k]), float(ev_u.time_stop[k]))
                  for k in range(int(ev_u.count))]
     assert sorted(got) == sorted(want) and len(want) >= 1
@@ -501,7 +501,7 @@ def test_sharded_iq_stream_chain_equals_unsharded(mesh):
                                           impl="fused")
     yr_u, _ = tfir.channelize_iq(t(x_re), t(x_im), IQ_FS, centers, **IQ_KW)
     scfg = tst.StreamConfig.from_config(cfg)
-    _, ev_u, _ = tst.stream_process(cfg, tst.stream_init_batch(scfg, 4, "cpu"), yr_u, IQ_AUDIO,
+    _, ev_u, _ = tst.stream_process(cfg, tst.stream_init_batch(scfg, 4, device="cpu"), yr_u, IQ_AUDIO,
                                     front="bins", impl="fused")
     assert int(ev_u.count.min()) >= 1, "every station's burst must be found"
     for f in ("count", "time_start", "time_stop"):

@@ -19,6 +19,8 @@ The CUDA kernel itself is held against the twin on a GPU by
 ``tests/test_torch_kernels_cuda.py`` and ``chip_smoke.py``.
 """
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -115,7 +117,7 @@ def jax_vmapped_scan(scfg, st0, on, pm):
 )
 def test_scan_matches_jax_vmapped_scan(n, seed, bursts):
     on, pm = series(3, n, seed, bursts)
-    got = tst.stream_scan(T_SCFG, tst.stream_init_batch(T_SCFG, 3, "cpu"),
+    got = tst.stream_scan(T_SCFG, tst.stream_init_batch(T_SCFG, 3, device="cpu"),
                           torch.from_numpy(on), torch.from_numpy(pm))
     want = jax_vmapped_scan(J_SCFG, jst.stream_init_batch(J_SCFG, 3), on, pm)
     assert_matches_jax(got, want)
@@ -126,7 +128,7 @@ def test_scan_matches_jax_vmapped_scan(n, seed, bursts):
 def test_fused_twin_matches_jax_fused_kernel():
     """600 blocks cross the JAX kernel's 512-block grid chunk."""
     on, pm = series(3, 600, 5, ((100, 130, 8.0), (480, 530, 9.0)))
-    got = tst.stream_scan_fused_batch(T_SCFG, tst.stream_init_batch(T_SCFG, 3, "cpu"),
+    got = tst.stream_scan_fused_batch(T_SCFG, tst.stream_init_batch(T_SCFG, 3, device="cpu"),
                                       torch.from_numpy(on), torch.from_numpy(pm))
     want = jst.stream_scan_fused_batch(J_SCFG, jst.stream_init_batch(J_SCFG, 3), jnp.asarray(on),
                                        jnp.asarray(pm), interpret=True)
@@ -138,13 +140,13 @@ def test_fused_twin_matches_jax_fused_kernel():
 def test_port_fused_equals_scan_bit_exact(cap):
     scfg = T_SCFG._replace(cap=cap)
     on, pm = series(4, 800, 7, ((150, 170, 8.0), (400, 430, 9.0), (650, 690, 7.0)))
-    st0 = tst.stream_init_batch(scfg, 4, "cpu")
+    st0 = tst.stream_init_batch(scfg, 4, device="cpu")
     on, pm = torch.from_numpy(on), torch.from_numpy(pm)
     fused = tst.stream_scan_fused_batch(scfg, st0, on, pm)
     assert_bits_equal(fused, tst.stream_scan(scfg, st0, on, pm))
     assert_bits_equal(  # one channel, unbatched
-        tst.stream_scan_fused(scfg, tst.stream_init(scfg, "cpu"), on[1], pm[1]),
-        tst.stream_scan(scfg, tst.stream_init(scfg, "cpu"), on[1], pm[1]),
+        tst.stream_scan_fused(scfg, tst.stream_init(scfg, device="cpu"), on[1], pm[1]),
+        tst.stream_scan(scfg, tst.stream_init(scfg, device="cpu"), on[1], pm[1]),
     )
     if cap == 2:
         assert bool(fused[1].overflow.all()) and int(fused[1].count.min()) == 3
@@ -153,9 +155,9 @@ def test_port_fused_equals_scan_bit_exact(cap):
 def test_chunked_equals_unchunked():
     on, pm = series(2, 900, 9, ((280, 310, 8.0), (590, 640, 9.0)))
     on, pm = torch.from_numpy(on), torch.from_numpy(pm)
-    st_w, ev_w, thr_w = tst.stream_scan_fused_batch(T_SCFG, tst.stream_init_batch(T_SCFG, 2, "cpu"),
-                                                    on, pm)
-    st = tst.stream_init_batch(T_SCFG, 2, "cpu")
+    st_w, ev_w, thr_w = tst.stream_scan_fused_batch(
+        T_SCFG, tst.stream_init_batch(T_SCFG, 2, device="cpu"), on, pm)
+    st = tst.stream_init_batch(T_SCFG, 2, device="cpu")
     thrs, starts = [], []
     for a, b in ((0, 300), (300, 597), (597, 600), (600, 900)):  # seams inside both tracks
         st, ev, thr = tst.stream_scan_fused_batch(T_SCFG, st, on[:, a:b], pm[:, a:b])
@@ -172,12 +174,12 @@ def test_stream_step_loop_equals_scan():
     """The per-block oracle formulation against the scan (float32 rounding:
     the scan's window sums run batched, the step's over the ring)."""
     on, pm = (torch.from_numpy(a[0]) for a in series(1, 600, 11, ((100, 140, 8.0), (350, 356, 9.0))))
-    st, ev = tst.stream_init(T_SCFG, "cpu"), tst._empty_events(T_SCFG.cap, torch.float32, "cpu")
+    st, ev = tst.stream_init(T_SCFG, device="cpu"), tst._empty_events(T_SCFG.cap, torch.float32, "cpu")
     thrs = []
     for i in range(600):
         st, ev, thr = tst.stream_step(T_SCFG, st, ev, on[i], pm[i])
         thrs.append(thr)
-    st_s, ev_s, thr_s = tst.stream_scan(T_SCFG, tst.stream_init(T_SCFG, "cpu"), on, pm)
+    st_s, ev_s, thr_s = tst.stream_scan(T_SCFG, tst.stream_init(T_SCFG, device="cpu"), on, pm)
     np.testing.assert_allclose(torch.stack(thrs).numpy(), thr_s.numpy(), rtol=1e-6, equal_nan=True)
     assert int(ev.count) == int(ev_s.count) == 2
     for f in tst.StreamEvents._fields[:7]:
@@ -234,7 +236,7 @@ def test_fronts_match_jax(front):
 def test_stream_process_matches_jax(front):
     x = make_audio(FS)
     st_t, ev_t, dg_t = tst.stream_process(
-        T_CFG, tst.stream_init(tst.StreamConfig.from_config(T_CFG), "cpu"), torch.from_numpy(x), FS,
+        T_CFG, tst.stream_init(tst.StreamConfig.from_config(T_CFG), device="cpu"), torch.from_numpy(x), FS,
         front=front, impl="scan")
     st_j, ev_j, dg_j = jst.stream_process(
         J_CFG, jst.stream_init(jst.StreamConfig.from_config(J_CFG)), jnp.asarray(x), FS,
@@ -254,7 +256,7 @@ def test_stream_process_matches_jax(front):
 
 @pytest.mark.parametrize("front", ["welch", "bins"])
 def test_empty_chunk_keeps_the_diag_schema(front):
-    st = tst.stream_init(tst.StreamConfig.from_config(T_CFG), "cpu")
+    st = tst.stream_init(tst.StreamConfig.from_config(T_CFG), device="cpu")
     x = torch.from_numpy(make_audio(FS, dur=10.0))
     st, _, d_full = tst.stream_process(T_CFG, st, x, FS, front=front, impl="fused")
     st2, ev, d_empty = tst.stream_process(T_CFG, st, x[:10], FS, front=front, impl="fused")
@@ -265,7 +267,7 @@ def test_empty_chunk_keeps_the_diag_schema(front):
 def test_stream_process_rejects_unknown_and_unported():
     """Unknown fronts and solvers raise; the episode-jump solvers, once
     unported, now run (``tests/test_torch_episode.py`` holds them)."""
-    st = tst.stream_init(tst.StreamConfig.from_config(T_CFG), "cpu")
+    st = tst.stream_init(tst.StreamConfig.from_config(T_CFG), device="cpu")
     x = torch.zeros(4000)
     with pytest.raises(ValueError, match="front"):
         tst.stream_process(T_CFG, st, x, FS, front="fft")
@@ -280,11 +282,38 @@ def test_stream_process_rejects_unknown_and_unported():
 
 
 def test_resolve_stream_auto():
-    assert tst.resolve_stream_auto("auto", "auto", "cpu") == ("welch", "scan")
-    assert tst.resolve_stream_auto("auto", "auto", "cuda") == ("bins", "fused")
-    assert tst.resolve_stream_auto("auto", "auto", torch.device("cuda", 0)) == ("bins", "fused")
-    assert tst.resolve_stream_auto("welch", "auto", "cuda") == ("welch", "fused")
-    assert tst.resolve_stream_auto("bins", "scan", "cpu") == ("bins", "scan")
+    assert tst.resolve_stream_auto("auto", "auto", device="cpu") == ("welch", "scan")
+    assert tst.resolve_stream_auto("auto", "auto", device="cuda") == ("bins", "fused")
+    assert tst.resolve_stream_auto("auto", "auto", device=torch.device("cuda", 0)) == ("bins", "fused")
+    assert tst.resolve_stream_auto("welch", "auto", device="cuda") == ("welch", "fused")
+    assert tst.resolve_stream_auto("bins", "scan", device="cpu") == ("bins", "scan")
+    # the reference's third parameter, the batch width, is accepted and ignored
+    assert tst.resolve_stream_auto("auto", "auto", 64, device="cpu") == ("welch", "scan")
+    assert tst.resolve_stream_auto("auto", "auto", n_channels=8, device="cuda") == ("bins", "fused")
+
+
+@pytest.mark.parametrize("name", ["stream_init", "stream_init_batch", "resolve_stream_auto"])
+def test_signatures_extend_the_reference(name):
+    """The reference's parameters in its order, then ``device``."""
+    t = list(inspect.signature(getattr(tst, name)).parameters)
+    j = list(inspect.signature(getattr(jst, name)).parameters)
+    assert t == j + ["device"], (t, j)
+
+
+def test_positional_dtype_as_in_jax():
+    """``stream_init(cfg, dtype)`` / ``stream_init_batch(cfg, n, dtype)``:
+    a positional dtype reaches the float leaves, as in the JAX package
+    (whose float64 is float32 unless x64 is on in this process)."""
+    pairs = ((tst.stream_init(T_SCFG, torch.float64, device="cpu"), jst.stream_init(J_SCFG, jnp.float64)),
+             (tst.stream_init_batch(T_SCFG, 2, torch.float64, device="cpu"),
+              jst.stream_init_batch(J_SCFG, 2, jnp.float64)))
+    for t, j in pairs:
+        for f in tst.StreamState._fields:
+            a, b = getattr(t, f).numpy(), np.asarray(getattr(j, f))
+            assert a.dtype == (np.float64 if b.dtype.kind == "f" else b.dtype), f
+            assert a.shape == b.shape, f
+            np.testing.assert_array_equal(a, b, err_msg=f)
+    assert pairs[0][0].tr_sum.dtype == torch.float64 and pairs[0][0].state.dtype == torch.int32
 
 
 @pytest.mark.parametrize("sec,bs", [(12.0, 0.2), (0.5, 0.2), (-1.0, 0.2), (0.6, 0.2), (1.0, 0.25)])
@@ -297,8 +326,8 @@ def test_config_and_init_match_jax():
     assert tst.StreamConfig.from_config(T_CFG) == tuple(jst.StreamConfig.from_config(J_CFG))
     for prop in ("signal_band", "noise_band_1", "noise_band_2"):
         assert getattr(T_CFG, prop) == getattr(J_CFG, prop)
-    for t, j in ((tst.stream_init(T_SCFG, "cpu"), jst.stream_init(J_SCFG)),
-                 (tst.stream_init_batch(T_SCFG, 3, "cpu"), jst.stream_init_batch(J_SCFG, 3))):
+    for t, j in ((tst.stream_init(T_SCFG, device="cpu"), jst.stream_init(J_SCFG)),
+                 (tst.stream_init_batch(T_SCFG, 3, device="cpu"), jst.stream_init_batch(J_SCFG, 3))):
         for f in tst.StreamState._fields:
             a, b = getattr(t, f).numpy(), np.asarray(getattr(j, f))
             assert a.dtype == b.dtype and a.shape == b.shape, f
@@ -408,7 +437,7 @@ def test_solve_plain_equals_composed_solve(case):
     scfg = T_SCFG._replace(cap=2 if case == "overflow" else 16)
     on, pm = series(3, 520, 17, ((150, 170, 8.0), (260, 300, 9.0), (420, 460, 7.0)))
     on, pm = torch.from_numpy(on), torch.from_numpy(pm)
-    state = tst.stream_init_batch(scfg, 3, "cpu")
+    state = tst.stream_init_batch(scfg, 3, device="cpu")
     if case == "mid_track":
         state = tst.stream_scan(scfg, state, on[:, :280], pm[:, :280])[0]
         assert bool((state.state == tst.TRACK).all())
@@ -424,7 +453,7 @@ def test_stream_solve_dispatch_by_device():
     """A CPU tensor goes to the twin and never to the kernel; other devices
     raise."""
     on, pm = (torch.from_numpy(a) for a in series(2, 20, 3))
-    state = tuple(tst.stream_init_batch(T_SCFG, 2, "cpu"))
+    state = tuple(tst.stream_init_batch(T_SCFG, 2, device="cpu"))
     kw = tst.solve_params(T_SCFG)
     assert_bits_equal(tsk.stream_solve(on, pm, state, **kw), tsk.stream_solve_plain(on, pm, state, **kw))
     with pytest.raises(ValueError, match="CUDA"):

@@ -1,7 +1,8 @@
 """The child side of ``tests/test_torch_multiproc.py``.
 
-:func:`run` is one process of a gloo group on the CPU: it builds a
-(station, time) mesh over every process's CPU positions, runs each sharded
+:func:`run` is one process of a group: it builds a (station, time) mesh
+over every process's positions (gloo on the CPU, as the tests run it; NCCL
+with ``device="cuda"``, one card a process by ``LOCAL_RANK``), runs each sharded
 entry point of the port on inputs made from seeds (:func:`compute_cases`),
 and the row operations on small rows (:func:`compute_row_ops`), and saves
 its global results with ``np.savez``.  The parent runs the same functions
@@ -94,7 +95,7 @@ def _t(a) -> torch.Tensor:
 def _named(prefix: str, value) -> dict:
     """Flatten tensors, named tuples and dicts into ``{name: array}``."""
     if isinstance(value, torch.Tensor):
-        return {prefix: value.numpy()}
+        return {prefix: value.cpu().numpy()}
     if isinstance(value, np.ndarray):
         return {prefix: value}
     items = value.items() if isinstance(value, dict) else (
@@ -176,62 +177,73 @@ def compute_row_ops(mesh) -> dict:
         psum_grid.append(thalo.time_psum([None if v is None else v[:, 0] for v in vr], mesh, s))
         gather_grid.append(thalo.time_all_gather(mr, 1, mesh, s))
     return {
-        "halo": tmesh.unshard(halo_grid, mesh, ST).numpy(),
-        "psum": tmesh.unshard(psum_grid, mesh, (tmesh.STATION_AXIS,)).numpy(),
-        "gather": tmesh.unshard(gather_grid, mesh, (tmesh.STATION_AXIS, None)).numpy(),
+        "halo": tmesh.unshard(halo_grid, mesh, ST).cpu().numpy(),
+        "psum": tmesh.unshard(psum_grid, mesh, (tmesh.STATION_AXIS,)).cpu().numpy(),
+        "gather": tmesh.unshard(gather_grid, mesh, (tmesh.STATION_AXIS, None)).cpu().numpy(),
     }
 
 
-def compute_idle(devices_per_process: int) -> dict:
-    """A 1 x 2 mesh over the first two CPU positions of the group: the
+def positions(device: str, n: int) -> list:
+    """``n`` mesh positions of this process: the CPU, or this process's card
+    (``cuda:LOCAL_RANK``, taken by ``process_device``)."""
+    return [tdist.process_device(device) if device == "cuda" else "cpu"] * n
+
+
+def compute_idle(devices_per_process: int, device: str = "cpu") -> dict:
+    """A 1 x 2 mesh over the first two positions of the group: the
     processes past them own none and still get every global result (two
     positions a process: the second process of two; one: the last two of
     four)."""
-    mesh = tmesh.make_mesh(1, 2, ["cpu"] * devices_per_process)
+    mesh = tmesh.make_mesh(1, 2, positions(device, devices_per_process))
     out = _named("delta_power", tsh.sharded_delta_power(_t(audio(2, 16.0, 0)), mesh, FS, NFFT,
                                                         BLOCK, FB, NB))
     out.update(_named("detect_fixed", tsh.sharded_detect_fixed(_t(delta(16.0, 1)), mesh, 4.0)))
     return out
 
 
-def compute_all(mesh, devices_per_process: int) -> dict:
+def compute_all(mesh, devices_per_process: int, device: str = "cpu") -> dict:
     """The cases, the row operations and the idle-process case."""
     out = {f"cases/{k}": v for k, v in compute_cases(mesh).items()}
     out.update({f"row_ops/{k}": v for k, v in compute_row_ops(mesh).items()})
-    out.update({f"idle/{k}": v for k, v in compute_idle(devices_per_process).items()})
+    out.update({f"idle/{k}": v for k, v in compute_idle(devices_per_process, device).items()})
     return out
 
 
-def run(rank: int, world: int, store: str, out_dir: str, n_station: int, n_time: int) -> None:
+def run(rank: int, world: int, store: str, out_dir: str, n_station: int, n_time: int,
+        device: str = "cpu") -> None:
     """One process of a group of ``world``: everything of :func:`compute_all`
     on an ``n_station x n_time`` mesh split evenly over the processes.
     Rank 0 first computes the same on one process driving the whole mesh
     (``reference.npz``), so both run with this process's thread settings:
     the bins front's projection (numpy ``eigh``) rounds differently with
-    the BLAS thread count."""
+    the BLAS thread count.  With ``device="cuda"`` the processes are one
+    node's (``LOCAL_RANK`` defaults to the rank), each on its own card, and
+    the group is NCCL's."""
     torch.set_num_threads(1)
+    if device == "cuda":
+        os.environ.setdefault("LOCAL_RANK", str(rank))
     if rank == 0:
         n = n_station * n_time
         np.savez(os.path.join(out_dir, "reference.npz"),
-                 **compute_all(tmesh.make_mesh(n_station, n_time, ["cpu"] * n), 2))
+                 **compute_all(tmesh.make_mesh(n_station, n_time, positions(device, n)), 2, device))
         with open(os.path.join(out_dir, "reference.json"), "w") as f:
-            json.dump({"dryrun": dryrun_multichip(4, ["cpu"] * 4)}, f)
-    assert tdist.init_multihost(f"file://{store}", world, rank, device="cpu")
+            json.dump({"dryrun": dryrun_multichip(4, positions(device, 4))}, f)
+    assert tdist.init_multihost(f"file://{store}", world, rank, device=device)
     try:
         try:
-            tmesh.make_mesh(1, None, ["cpu"] * (1 + rank))
+            tmesh.make_mesh(1, None, positions(device, 1 + rank))
             unequal = "no error"
         except ValueError as e:
             unequal = str(e)
         per = n_station * n_time // world
-        mesh = tmesh.make_mesh(n_station, n_time, ["cpu"] * per)
-        results = compute_all(mesh, 2 if world == 2 else 1)
+        mesh = tmesh.make_mesh(n_station, n_time, positions(device, per))
+        results = compute_all(mesh, 2 if world == 2 else 1, device)
         info = {
             "process_index": tdist.process_index(), "process_count": tdist.process_count(),
             "owners": mesh.owners, "transport": mesh.transport,
             "staged_bytes": mesh.link.staged_bytes, "wire_bytes": mesh.link.wire_bytes,
             "unequal_counts": unequal,
-            "dryrun": dryrun_multichip(4, ["cpu"] * (4 // world)),
+            "dryrun": dryrun_multichip(4, positions(device, 4 // world)),
             "jax_modules": sorted(m for m in sys.modules if m.split(".")[0] in (
                 "jax", "meteor_scatter_tpu")),
         }

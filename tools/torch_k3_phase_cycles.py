@@ -99,7 +99,7 @@ def main() -> int:
     stamped = build()
     for label, C, n, carried in (("stations", 64, 3000, False), ("live_feed", 1, 300, True)):
         on, pm = cs.stream_series(C, 2 * n if carried else n, seed=C * n)
-        state = st.stream_init_batch(scfg, C, "cuda")
+        state = st.stream_init_batch(scfg, C, device="cuda")
         if carried:
             state = st.stream_scan(scfg, state, on[:, :n], pm[:, :n])[0]
             on, pm = on[:, n:].contiguous(), pm[:, n:].contiguous()

@@ -156,6 +156,29 @@ def run_mesh_stations(n_devices: int, devices, seconds: float, stations_per_devi
     return step_seconds(step, mesh.device, reps, chain), C * n, mesh.transport
 
 
+def local_devices(device: str, n: int | None) -> tuple[list[str], str]:
+    """This process's ``n`` mesh positions and the name of their device.
+    On CUDA with ``LOCAL_RANK`` set (one card per process of the node) they
+    repeat ``cuda:LOCAL_RANK`` (default 1); without it they go round every
+    card from ``cuda:0`` (default one each).  On the CPU ``n`` (default 1)
+    CPU positions."""
+    import torch
+
+    from meteor_scatter_tpu_torch.parallel.distributed import process_device
+
+    if device == "cpu":
+        return ["cpu"] * (n or 1), "cpu"
+    if not torch.cuda.is_available():
+        raise SystemExit("torch.cuda.is_available() is False; pass --device cpu")
+    if "LOCAL_RANK" in os.environ:
+        devices = [str(process_device("cuda"))] * (n or 1)
+    else:
+        cards = torch.cuda.device_count()
+        devices = [f"cuda:{k % cards}" for k in range(n or cards)]
+        torch.cuda.set_device(devices[0])
+    return devices, torch.cuda.get_device_name(devices[0])
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--devices", type=int, nargs="+", default=None,
@@ -175,7 +198,8 @@ def main(argv=None) -> int:
                    help="the device type of this process's mesh positions")
     p.add_argument("--local-devices", type=int, default=None,
                    help="mesh positions this process contributes (default: every CUDA "
-                        "device, or 1 on the CPU); more than the cards repeats them")
+                        "device, or 1 on the CPU or with LOCAL_RANK set); more than the "
+                        "cards repeats them")
     p.add_argument("--backend", choices=("nccl", "gloo"), default=None,
                    help="process-group backend (default: nccl for cuda, gloo for cpu)")
     p.add_argument("--coordinator", default=None)
@@ -192,17 +216,7 @@ def main(argv=None) -> int:
         process_index,
     )
 
-    if args.device == "cuda":
-        if not torch.cuda.is_available():
-            raise SystemExit("torch.cuda.is_available() is False; pass --device cpu")
-        cards = torch.cuda.device_count()
-        local = args.local_devices or cards
-        devices = [f"cuda:{k % cards}" for k in range(local)]
-        torch.cuda.set_device(devices[0])
-        device_name = torch.cuda.get_device_name(0)
-    else:
-        devices = ["cpu"] * (args.local_devices or 1)
-        device_name = "cpu"
+    devices, device_name = local_devices(args.device, args.local_devices)
     init_multihost(args.coordinator, args.num_processes, args.process_id, device=args.device,
                    backend=args.backend)
     try:
