@@ -7,9 +7,10 @@ loop); each chunk's band levels are computed as one batched tensor program
 on the chosen device and the block-rate solve (rolling threshold, 3-state
 decision machine, event compaction) runs over the chunk's blocks — on a GPU
 by default as one launch of the hand-written CUDA kernel
-``csrc/stream_machine.cu``; ``--impl scan|jump|hop`` select the plain
-PyTorch solvers (the block machine, or the episode-jump solvers of
-:mod:`meteor_scatter_tpu_torch.models.streaming`).
+``csrc/stream_machine.cu``; ``--impl scan`` selects the plain PyTorch block
+machine, and ``--impl jump|hop`` the episode-jump solvers of
+:mod:`meteor_scatter_tpu_torch.models.streaming` (the same kernel on a GPU,
+their lockstep loops on the CPU).
 
 Usage::
 
@@ -240,7 +241,8 @@ def main(argv=None) -> int:
                         "within f32 noise of the Welch path")
     p.add_argument("--impl", choices=("auto", "scan", "jump", "hop", "fused"), default="auto",
                    help="block-rate solver: 'scan' (the plain PyTorch machine), "
-                        "'jump' / 'hop' (the episode-jump solvers: event boundaries "
+                        "'jump' / 'hop' (the episode-jump solvers: the CUDA kernel on a "
+                        "GPU, the episode-jump loops on the CPU; event boundaries "
                         "bit-exact vs scan, dB statistics to f32 summation order), "
                         "'fused' (the CUDA kernel on a GPU, bit-exact vs scan), or "
                         "'auto' (fused on a GPU, scan on the CPU)")

@@ -34,10 +34,11 @@ on any device; :func:`stream_scan_fused_batch` runs the same solve on the
 series' device, which is one launch of the hand-written CUDA kernel K3 on
 a GPU.  The two are bit-exact with each other on one device.  The
 episode-jump solvers :func:`stream_scan_jump` and
-:func:`stream_scan_jump_batch` (plain PyTorch on any device) jump from
-decision to decision instead of walking every block; they give the scan's
-thresholds, transitions and event boundaries bit for bit and its dB
-statistics to float32 summation order.  Every state and series is batched
+:func:`stream_scan_jump_batch` give the scan's thresholds, transitions and
+event boundaries bit for bit and its dB statistics to float32 summation
+order: on the CPU as lockstep loops that jump from decision to decision
+instead of walking every block, on a GPU as one launch of K3, which is the
+scan itself.  Every state and series is batched
 over a leading channel axis where the reference uses ``vmap``; an
 unbatched call is one channel.
 """
@@ -65,9 +66,10 @@ from meteor_scatter_tpu_torch.ops.welch import (
 # State machine encoding
 INIT, DETECT, TRACK = 0, 1, 2
 
-# The episode solvers' loop tests on the host whether any channel is still
-# undecided once every SYNC_EVERY lockstep iterations (each test waits for
-# the device); iterations past a channel's end leave its carry unchanged.
+# The episode solvers' lockstep loop (the CPU route, and hop's degraded
+# chunks on a GPU) tests on the host whether any channel is still undecided
+# once every SYNC_EVERY iterations (each test waits for the device);
+# iterations past a channel's end leave its carry unchanged.
 SYNC_EVERY = 4
 iterations = 0  # episode-solver lockstep iterations so far; chip_smoke.py resets and reads it
 syncs = 0  # host tests of the episode solvers' loop so far
@@ -533,6 +535,51 @@ def stream_scan_fused(
     return _solve(scfg, state, over_noise, psd_db_mean, stream_kernel.stream_solve)
 
 
+def _episode_slots(cap: int) -> int:
+    """Lock-episode records the lockstep hop keeps a chunk, as the reference."""
+    return 4 * cap + 8
+
+
+def _hop_records_fit(scfg: StreamConfig, n_blocks: int) -> bool:
+    """Whether the lockstep hop cannot drop a lock-episode record on a chunk
+    of ``n_blocks``: slot 0 carries the incoming lock and every later record
+    ends at a distinct block (a track exit, or the one end-of-chunk record),
+    so a chunk makes at most ``n_blocks + 2`` records."""
+    return n_blocks + 2 <= _episode_slots(scfg.cap)
+
+
+def _k3_takes(state: StreamState, over_noise, psd_db_mean) -> bool:
+    """Whether an episode solve goes to K3: the series on a GPU, in the
+    kernel's dtypes (float32 series, the state as :func:`stream_init` makes
+    it at float32).  Other dtypes on a GPU run the lockstep loops there.
+    Reads devices and dtypes only."""
+    return (over_noise.is_cuda and over_noise.dtype == psd_db_mean.dtype == torch.float32
+            and all(a.dtype == dt for a, dt in zip(state, stream_kernel.STATE_DTYPES)))
+
+
+def _episode_on_k3(scfg: StreamConfig, state: StreamState, over_noise, psd_db_mean, hop: bool,
+                   track_hop: int = 128) -> tuple:
+    """Jump's result (``hop=False``) or hop's with ``{"thr_degraded": ...}``
+    (``hop=True``) from K3's solve (:func:`stream_kernel.stream_solve`: the
+    kernel on a GPU, its twin on the CPU), 1-D or batched as the series.
+
+    K3 is bit-exact to the scan, which both solvers' contracts are stated
+    against, so it meets jump's outright.  Hop's thresholds are the scan's
+    wherever no lock-episode record is dropped, which
+    :func:`_hop_records_fit` guarantees; there ``thr_degraded`` is False.  A
+    chunk outside it runs the lockstep hop on the series' device, so that
+    its thresholds degrade exactly as the reference's do.  The choice reads
+    shapes only, never the device's data."""
+    if hop and not _hop_records_fit(scfg, over_noise.shape[-1]):
+        return _per_channel(functools.partial(_hop, scfg, track_hop=track_hop), state,
+                            over_noise, psd_db_mean)
+    out = _solve(scfg, state, over_noise, psd_db_mean, stream_kernel.stream_solve)
+    if not hop:
+        return out
+    degraded = torch.zeros(over_noise.shape[:-1], dtype=torch.bool, device=over_noise.device)
+    return (*out, {"thr_degraded": degraded})
+
+
 class _Lanes(NamedTuple):
     """Per-channel carry of the episode solvers' lockstep loop, each (C,):
     the next undecided block ``k`` (chunk-relative; the channel is done at
@@ -741,7 +788,9 @@ def stream_scan_jump(
     psd_db_mean: torch.Tensor,  # like over_noise
 ) -> Tuple[StreamState, StreamEvents, torch.Tensor]:
     """Episode-jump formulation of :func:`stream_scan`: O(episodes) steps
-    instead of O(blocks), in plain PyTorch on the series' device.
+    instead of O(blocks), in plain PyTorch on the CPU.  On a GPU a float32
+    call is one launch of K3 (:func:`_episode_on_k3`), which meets the same
+    contract; other dtypes run this loop on the GPU (:func:`_k3_takes`).
 
     The machine's transitions depend only on comparisons of ``over_noise``
     against the precomputable base thresholds and against locked values,
@@ -768,6 +817,8 @@ def stream_scan_jump(
     its acceptance, which is why this stays opt-in (``impl="jump"``).
     Reference semantics anchor: `processor.py:444-510`.
     """
+    if _k3_takes(state, over_noise, psd_db_mean):
+        return _episode_on_k3(scfg, state, over_noise, psd_db_mean, hop=False)
     return _per_channel(functools.partial(_jump, scfg), state, over_noise, psd_db_mean)
 
 
@@ -775,7 +826,7 @@ def _hop(scfg: StreamConfig, state: StreamState, on: torch.Tensor, pm: torch.Ten
          track_hop: int):
     C, n = on.shape
     dev = on.device
-    cap, ep_cap = scfg.cap, 4 * scfg.cap + 8
+    cap, ep_cap = scfg.cap, _episode_slots(scfg.cap)
     lock_tail = lock_tail_blocks(scfg.after_wait_sec, scfg.block_sec)
     w_lock = max(lock_tail, 1)
     W = max(w_lock, track_hop)
@@ -891,7 +942,11 @@ def stream_scan_jump_batch(
 ):
     """Episode-jump solver built for wide batches: each step is O(window)
     per channel instead of :func:`stream_scan_jump`'s O(n_blocks), in plain
-    PyTorch on the series' device.
+    PyTorch on the CPU.  On a GPU a float32 call is one launch of K3
+    (:func:`_episode_on_k3`), with ``thr_degraded`` False, wherever the
+    records below cannot overflow (``n_blocks + 2 ≤ 4·cap + 8``: every live
+    feed and the stations at the default ``max_events``); a longer chunk,
+    or other dtypes (:func:`_k3_takes`), run this loop on the GPU.
 
     * **Detection, unlocked** — the next crossing of the *base* threshold
       does not depend on where the search starts, so the first crossing at
@@ -916,8 +971,11 @@ def stream_scan_jump_batch(
     channel}``, true iff an episode record was dropped.
     Reference semantics anchor: `processor.py:444-510`.
     """
-    out = _per_channel(functools.partial(_hop, scfg, track_hop=track_hop), state, over_noise,
-                       psd_db_mean)
+    if _k3_takes(state, over_noise, psd_db_mean):
+        out = _episode_on_k3(scfg, state, over_noise, psd_db_mean, hop=True, track_hop=track_hop)
+    else:
+        out = _per_channel(functools.partial(_hop, scfg, track_hop=track_hop), state, over_noise,
+                           psd_db_mean)
     return out if with_diag else out[:3]
 
 
@@ -962,9 +1020,10 @@ def stream_process(
 
     ``front``/``impl`` default to ``"auto"`` (:func:`resolve_stream_auto`).
     ``impl="jump"`` / ``"hop"`` select the episode-jump solvers
-    (:func:`stream_scan_jump`, :func:`stream_scan_jump_batch`): thresholds
-    and event boundaries bit-exact against the scan, dB statistics to
-    float32 summation order; ``"hop"`` adds ``diags["thr_degraded"]``.
+    (:func:`stream_scan_jump`, :func:`stream_scan_jump_batch`; one K3
+    launch on a GPU): thresholds and event boundaries bit-exact against the
+    scan, dB statistics to float32 summation order; ``"hop"`` adds
+    ``diags["thr_degraded"]``.
     """
     front, impl = resolve_stream_auto(front, impl, device=samples.device)
     if front not in ("welch", "bins"):

@@ -375,9 +375,10 @@ def sharded_stream_process(
     position of the row over its station group: the scan twin with
     ``impl="scan"``, the batched episode-jump solvers with ``impl="jump"``
     / ``"hop"`` (``stream_scan_jump`` / ``stream_scan_jump_batch`` over the
-    group, where the reference ``vmap``s the one-series solver), or one
-    launch of the fused kernel K3 per position with ``impl="fused"`` (its
-    twin on a CPU mesh).  The result equals the unsharded
+    group, where the reference ``vmap``s the one-series solver: one launch
+    of the fused kernel K3 per position on a CUDA mesh, the lockstep loops
+    on a CPU mesh), or one launch of K3 per position with
+    ``impl="fused"`` (its twin on a CPU mesh).  The result equals the unsharded
     :func:`~meteor_scatter_tpu_torch.models.streaming.stream_process` on the
     same device type.  ``"auto"`` resolves by the mesh's device type
     (:func:`~meteor_scatter_tpu_torch.models.streaming.resolve_stream_auto`).

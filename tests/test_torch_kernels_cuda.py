@@ -18,9 +18,13 @@ than the twin's ``torch.matmul``: dB levels agree to the JAX package's own
 kernel tolerances, 2e-3 dB (band, noise) and 4e-3 dB (delta).  On a
 virtual 2 x 4 mesh of the card, the sharded streaming machine launches K3
 once per mesh position, bit-equal to the twin on the gathered series.  The
+episode-jump solvers (``impl="jump"`` / ``"hop"``) run K3 on the card and
+equal their lockstep loops on the card and on the CPU; past hop's record
+bound the lockstep hop runs on the card.  The
 build tests run anywhere: they stand in a fake ``nvcc``.
 """
 
+import functools
 import os
 import stat
 import time
@@ -472,6 +476,149 @@ def test_stream_fused_launches_only_k3(cuda):
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     assert [r.count for r in rows] == [2] and "stream_solve_kernel" in rows[0].key
+
+
+# ---- the episode-jump solvers through K3 ------------------------------------------
+
+EPISODE_TOL = {"jump": 1e-5, "hop": 1e-4}  # the JAX tests' event tolerances
+EPISODE_STATE_TOL = 1e-5
+EPISODE_INT_STATE = ("state", "block_idx", "ring", "locked_until_block", "track_start_sec",
+                     "track_start_block", "tr_count", "init_count")
+EPISODE_SUMS = ("tr_sum", "tr_sumsq", "tr_min", "tr_max", "init_sum", "psd_db_mean_from_init")
+
+
+def episode_solver(impl):
+    if impl == "jump":
+        return tst.stream_scan_jump
+    return lambda *a: tst.stream_scan_jump_batch(*a, with_diag=True)
+
+
+def assert_episode_equal(got, want, impl):
+    """An episode solve against another on ``want``'s device: counts,
+    overflow, start / stop times, the integer and entry state and
+    ``thr_degraded`` bit for bit, the other event fields within
+    ``EPISODE_TOL``, the sums, thresholds and locked threshold within
+    ``EPISODE_STATE_TOL`` (a CPU root may be an ulp off the card's)."""
+    dev = want[2].device
+    st_g, ev_g = (type(t)(*(a.to(dev) for a in t)) for t in got[:2])
+    st_w, ev_w, thr_w = want[:3]
+    c = int(ev_w.count.max())
+    close = {f: (getattr(ev_g, f)[..., :c], getattr(ev_w, f)[..., :c], EPISODE_TOL[impl])
+             for f in ("duration", "db_min", "db_max", "db_mean", "db_std")}
+    close.update({f: (getattr(st_g, f), getattr(st_w, f), EPISODE_STATE_TOL)
+                  for f in EPISODE_SUMS + ("locked_threshold",)})
+    close["thresholds"] = (got[2].to(dev), thr_w, EPISODE_STATE_TOL)
+    for f in ("count", "overflow"):
+        assert_bits_equal(getattr(ev_g, f), getattr(ev_w, f), f)
+    for f in ("time_start", "time_stop"):
+        assert_bits_equal(getattr(ev_g, f)[..., :c], getattr(ev_w, f)[..., :c], f)
+    for f in EPISODE_INT_STATE:
+        assert_bits_equal(getattr(st_g, f), getattr(st_w, f), f"state.{f}")
+    if impl == "hop":
+        assert_bits_equal(got[3]["thr_degraded"].to(dev), want[3]["thr_degraded"], "thr_degraded")
+    for name, (a, b, tol) in close.items():
+        assert bool(torch.isclose(a, b, rtol=tol, atol=tol, equal_nan=True).all()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["jump", "hop"])
+@pytest.mark.parametrize("C", [1, 64])
+def test_episode_solvers_run_k3_on_card(cuda, impl, C):
+    """On the card ``stream_scan_jump`` / ``stream_scan_jump_batch`` are one
+    K3 launch and no lockstep iteration (one series or 64, 3 000 blocks,
+    the live event capacity: inside hop's record bound), equal to the
+    lockstep solvers run on the card bit for bit on thresholds, and to
+    them on CPU copies."""
+    scfg = STREAM_CFG._replace(cap=1024)
+    on, pm = stream_inputs(C, 3000, 300 + C, cuda)
+    st0 = tst.stream_init_batch(scfg, C, device=cuda)
+    if C == 1:  # one series: 1-D levels, a scalar state
+        on, pm, st0 = on[0], pm[0], tst.stream_init(scfg, device=cuda)
+    before, tst.iterations = tsk.launches, 0
+    got = episode_solver(impl)(scfg, st0, on, pm)
+    torch.cuda.synchronize()
+    assert tsk.launches == before + 1 and tst.iterations == 0
+    assert got[2].device.type == "cuda" and got[2].shape == on.shape
+    lockstep = functools.partial(tst._jump, scfg) if impl == "jump" else functools.partial(
+        tst._hop, scfg, track_hop=128)
+    card = tst._per_channel(lockstep, st0, on, pm)
+    assert_episode_equal(got, card, impl)
+    assert_bits_equal(got[2], card[2], "thresholds against the lockstep on the card")
+    assert_bits_equal(got[0].locked_threshold, card[0].locked_threshold, "state.locked_threshold")
+    cpu = lambda t: type(t)(*(a.cpu() for a in t))  # noqa: E731
+    assert_episode_equal(got, episode_solver(impl)(scfg, cpu(st0), on.cpu(), pm.cpu()), impl)
+    assert int(got[1].count.sum()) >= C
+    if impl == "hop":
+        assert not bool(got[3]["thr_degraded"].any())
+
+
+@pytest.mark.cuda
+def test_hop_past_record_bound_runs_lockstep_on_card(cuda):
+    """A chunk with ``n_blocks + 2 > 4·cap + 8`` (a lock episode every 3
+    blocks at cap 2, as ``tests/test_torch_episode.py::pathological``) runs
+    the lockstep hop on the card, launching no K3, and equals the CPU's:
+    ``thr_degraded`` set, thresholds equal."""
+    scfg = STREAM_CFG._replace(cap=2, min_dur_sec=2.0)
+    on = (np.random.default_rng(50).standard_normal((3, 600)) * 0.3).astype(np.float32)
+    on[:, 60:580:3] += 9.0
+    on, pm = torch.from_numpy(on).to(cuda), torch.full((3, 600), -80.0, device=cuda)
+    assert not tst._hop_records_fit(scfg, 600)
+    st0 = tst.stream_init_batch(scfg, 3, device=cuda)
+    before, tst.iterations = tsk.launches, 0
+    got = tst.stream_scan_jump_batch(scfg, st0, on, pm, with_diag=True)
+    torch.cuda.synchronize()
+    assert tsk.launches == before and tst.iterations > 0
+    assert bool(got[3]["thr_degraded"].all()) and got[2].device.type == "cuda"
+    want = tst.stream_scan_jump_batch(scfg, type(st0)(*(a.cpu() for a in st0)), on.cpu(),
+                                      pm.cpu(), with_diag=True)
+    assert_episode_equal(got, want, "hop")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["jump", "hop"])
+def test_episode_solvers_float64_run_lockstep_on_card(cuda, impl):
+    """K3 takes float32 only: a float64 state and series on the card run the
+    lockstep loops there (no K3 launch), keep float64, and equal the same
+    loops on the CPU."""
+    scfg = STREAM_CFG._replace(cap=1024)
+    on, pm = (a.double() for a in stream_inputs(4, 600, 404, cuda))
+    st0 = tst.stream_init_batch(scfg, 4, torch.float64, device=cuda)
+    assert not tst._k3_takes(st0, on, pm)
+    before, tst.iterations = tsk.launches, 0
+    got = episode_solver(impl)(scfg, st0, on, pm)
+    torch.cuda.synchronize()
+    assert tsk.launches == before and tst.iterations > 0
+    assert got[2].device.type == "cuda" and got[2].dtype == got[0].tr_sum.dtype == torch.float64
+    cpu = lambda t: type(t)(*(a.cpu() for a in t))  # noqa: E731
+    assert_episode_equal(got, episode_solver(impl)(scfg, cpu(st0), on.cpu(), pm.cpu()), impl)
+
+
+@pytest.mark.cuda
+def test_sharded_hop_launches_k3_per_mesh_position(cuda):
+    """``impl="hop"`` on a virtual 2 x 4 mesh of the card launches K3 once
+    per mesh position, with no lockstep iteration: every leaf bit-equal to
+    hop on the gathered series, and the unsharded hop's events."""
+    from meteor_scatter_tpu_torch.config import DetectionConfig
+    from meteor_scatter_tpu_torch.parallel import make_mesh, sharded_stream_process
+
+    cfg = DetectionConfig(signal_freq=1000.0, detection_db_over_noise_mean_min=1.0,
+                          detection_dur_min_sec=0.5)
+    x = seam_audio().to(cuda)
+    scfg = tst.StreamConfig.from_config(cfg)
+    st0 = tst.stream_init_batch(scfg, 2, device=cuda)
+    before, tst.iterations = tsk.launches, 0
+    st, ev, dg = sharded_stream_process(cfg, st0, x, 4000, make_mesh(2, 4, ["cuda:0"] * 8),
+                                        front="bins", impl="hop")
+    torch.cuda.synchronize()
+    assert tsk.launches == before + 8 and tst.iterations == 0
+    on = dg["over_noise"]
+    st_g, ev_g, thr_g = tst.stream_scan_jump_batch(scfg, st0, on, torch.zeros_like(on))
+    for a, b in zip((*st, *ev, dg["threshold"]), (*st_g, *ev_g, thr_g)):
+        assert_bits_equal(a, b, "sharded hop against hop on the gathered series")
+    _, ev_u, _ = tst.stream_process(cfg, st0, x, 4000, front="bins", impl="hop")
+    for f in ("count", "overflow", "time_start", "time_stop"):
+        assert_bits_equal(getattr(ev, f), getattr(ev_u, f), f)
+    assert int(ev.count.min()) >= 1
 
 
 @pytest.mark.cuda
