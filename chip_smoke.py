@@ -28,26 +28,29 @@ non-zero (there is no CPU fallback):
    analyzer shape, with ``torch.matmul`` plus the same epilogue as a
    yardstick the port never calls; each the median of 60 CUDA-event
    launches, with its share of the bound).
-4. e2e           — a 24 h, 6 kHz, int16 WAV with a 1 s 1003 Hz tone every
-   47 s through ``apps.analyze.main`` (K1 launched once per chunk, by the
-   walk route, every tone detected, fused == parallel events); a profiled
-   warm run of the day.
+4. e2e           — G1: a 24 h, 6 kHz, int16 WAV with a 1 s 1003 Hz tone
+   every 47 s and one on each of K1's chunk seams through
+   ``apps.analyze.main`` (K1 launched once per chunk, by the walk route,
+   every tone detected, fused == parallel events), adaptive and
+   ``--fixed-threshold``, each against the JAX package's golden output;
+   a profiled warm run of the day.
 5. e2e_bandpower — the same day through ``fused_bandpower_delta`` (one K2
-   launch), against the analyzer's band power.
-6. e2e_live      — a 24 h, 4 kHz, int16 WAV with a 1 s 1000 Hz tone every
-   47 s through ``apps.live.main`` (welch front, impl auto = fused: K3
-   launched once per 60 s feed, every tone detected, no overflow); fused
-   == scan events on the first hour; the headless (bins) front over the
-   day; a profiled hour.
-7. e2e_stations  — 64 stations x 600 s at 4 kHz, pre-blocked, through
+   launch), against the analyzer's band power and the golden delta.
+6. e2e_live      — G2: a 24 h, 4 kHz, int16 WAV with a 1 s 1000 Hz tone
+   every 47 s through ``apps.live.main`` (welch front, impl auto = fused:
+   K3 launched once per 60 s feed, every tone detected, no overflow, the
+   lines and events against the golden output's); fused == scan events on
+   the first hour; the headless (bins) front over the day; a profiled hour.
+7. e2e_stations  — G3: 64 stations x 600 s at 4 kHz, pre-blocked, through
    ``stream_front_headless`` + ``stream_scan_fused_batch`` (one K3
    launch, and the profiled solve shows K3 as its only device row),
-   events bit-equal to the scan twin's, every station's tone found,
-   aggregate samples/s.
-8. e2e_frontend  — ``apps.frontend.main`` on a 60 s, 2 MS/s capture of 8
-   stations, real (channelize /200, resample x3/5 to 6 kHz) and ``--iq``:
-   every burst after the 10 s fixed start found, no overflow; on a 30 s cut
-   the stages timed one by one and the card's events equal to the CPU's.
+   events bit-equal to the scan twin's and equal to the golden output's,
+   every station's tone found, aggregate samples/s.
+8. e2e_frontend  — G4: ``apps.frontend.main`` on a 60 s, 2 MS/s capture of
+   8 stations, real (channelize /200, resample x3/5 to 6 kHz) and
+   ``--iq``: every burst after the 10 s fixed start found, no overflow, the
+   station lines equal to the golden output's; on a 30 s cut the stages
+   timed one by one and the card's events equal to the CPU's.
 9. e2e_frontend_iq — BASELINE config 4 at spec: 60 s of 2 MS/s I/Q, 8
    stations, uploaded pre-framed, through ``channelize_iq_frames`` +
    ``stream_front_headless`` + ``stream_scan_fused_batch`` (one K3 launch),
@@ -89,7 +92,8 @@ non-zero (there is no CPU fallback):
    for the batch and ms for one segment, the label rounds, a profile of
    one segment; then ``apps.monitor.main --wav`` over a synthetic 6 h day
    from 21:00 (the daily CSVs byte-equal to the port's ledger fed the
-   truth on the same clock, one PNG per burst segment).
+   truth on the same clock and, as G5, with the journals, PNG names and
+   counts, to the JAX CLI's golden output; one PNG per burst segment).
 13. e2e_host    — the host slice: first a line with pandas' and
    matplotlib's versions (null where absent, decided by ``find_spec``) and
    g++'s path; the config tree's INI round trip (defaults and
@@ -152,6 +156,14 @@ non-zero (there is no CPU fallback):
    bench's ``local_devices``).  Its K1 launches are printed on its line and
    not added to the kernel records' counts.
 
+The days are made on the host with numpy from seeds
+(``tools/golden_fixtures.py``); ``tests/data/golden/`` holds what the JAX
+package made of them on the CPU (``tools/make_golden.py``).  Each golden
+comparison (``tools/golden_compare.py``) checks the input's hashes first,
+then prints a ``golden`` line: events of both, the identical count, ties
+with their margins, the sampled blocks' largest delta and threshold
+differences, the launches.  A fault fails the run after the last phase.
+
 Each main path is driven with every launch count set to 0 just before it
 and read just after.  The last three lines are the ``nvidia-smi`` line, one
 JSON object with a record per kernel, and ``{"ok": true, "device": {...}}``.
@@ -178,11 +190,12 @@ import numpy as np
 
 DEVICE = "cuda"  # one card: the current CUDA device
 REPO = os.path.dirname(os.path.abspath(__file__))
+# tools/golden_fixtures.py (the seeded days) and tools/golden_compare.py
+# (the golden outputs of tests/data/golden/): numpy and the stdlib only
+sys.path.insert(0, os.path.join(REPO, "tools"))
 FS = 6000
 HOURS = 24
 BLOCK_SEC = 0.2
-TONE_HZ = 1003.0
-TONE_EVERY_SEC = 47.0
 # main-path solver parameters: k = 4, 120 s window, 3 s / 20 s freeze,
 # 10 s fixed start, at 0.2 s blocks
 SOLVER = dict(
@@ -202,6 +215,10 @@ CSM_RTOL = 1e-5  # of max|csm|: ~160 f32 ulps
 # difference of a float32 prefix sum that reaches ~1e5 within a 131 072-block
 # chunk (ulp 2**-7); over a 5-block run that is ~2e-3 dB of the mean.
 EVENT_DB_TOL = 1e-2
+# A streaming event's duration against the JAX package's: XLA may contract
+# i * block_sec - start into one fused multiply-add, an ulp away
+# (tests/test_torch_live.py, tests/test_torch_streaming.py).
+DURATION_TOL = 1e-5
 
 # The live / stations configuration (BASELINE config 5): 4 kHz, 0.2 s blocks,
 # n_fft 4096, 1000 Hz signal band, accept mean >= 1 dB and duration >= 0.5 s.
@@ -275,11 +292,13 @@ EPISODE_K1_CAP = 4096  # events of the batch day (detect_adaptive's default cap)
 EPISODE_CPU_REPS = 3  # CPU walls of the scan / jump / hop, median of 3
 EPISODE_DEGRADED_STATIONS = 8  # channels of the chunk past hop's record bound
 LIVE_FEED_SEC = 60.0  # apps.live's chunk, and its waterfall ring (max_range_sec)
-# e2e_determinism: repeats that must give the same bits; the card's event
-# means against the CPU's float path within the analyzer's DB_ATOL
-# (tests/test_torch_analyze.py); a buffer no fixed-threshold day fills.
+# The analyzer's event dB against the JAX package's (its DB_ATOL,
+# tests/test_torch_analyze.py): the golden CSVs, and in e2e_determinism the
+# card's event means against the CPU's float path.
+ANALYZER_DB_ATOL = 1e-4
+# e2e_determinism: repeats that must give the same bits; a buffer no
+# fixed-threshold day fills.
 DETERMINISM_REPEATS = 20
-DETERMINISM_DB_ATOL = 1e-4
 DETERMINISM_CAP = 1 << 16
 # Card peaks for the bound (H100 SXM data sheet): HBM bytes/s, FP32 FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
@@ -499,28 +518,50 @@ def phase_kernel_k1() -> dict:
     }
 
 
-def synth_wav(path: str, hours: int, seed: int) -> np.ndarray:
-    """Noise (std 0.5) plus a 1 s tone of amplitude 2 every 47 s from 10 s on,
-    as ``bench.py::synth_audio``, made on the card and written as int16.
-    Returns the tone start times in seconds."""
-    import torch
+@contextlib.contextmanager
+def recording(module, name: str):
+    """``module.name`` wrapped for the ``with`` block so that each call's
+    result is kept in the yielded list: an entry point's own run read
+    without a second run."""
+    fn = getattr(module, name)
+    made = []
 
-    from meteor_scatter_tpu_torch.io.wavio import write_wav
+    def wrapper(*args, **kw):
+        made.append(fn(*args, **kw))
+        return made[-1]
 
-    dev = torch.device(DEVICE)
-    seconds = hours * 3600
-    g = torch.Generator(device=dev).manual_seed(seed)
-    x = torch.randn(FS * seconds, generator=g, device=dev) * 0.5
-    starts = np.arange(10.0, seconds - 5.0, TONE_EVERY_SEC)
-    j = torch.arange(FS, dtype=torch.float64, device=dev)
-    for s in starts:
-        a = int(round(s * FS))
-        tone = 2.0 * torch.sin(2 * math.pi * TONE_HZ * (a + j) / FS)
-        x[a : a + FS] += tone.float()
-    pcm = torch.clamp(torch.round(x * 3000.0), -32768, 32767).to(torch.int16).cpu().numpy()
-    del x
-    write_wav(path, FS, pcm)
-    return starts
+    setattr(module, name, wrapper)
+    try:
+        yield made
+    finally:
+        setattr(module, name, fn)
+
+
+def file_text(path: str) -> str:
+    with open(path) as fh:
+        return fh.read()
+
+
+# Failed golden comparisons, raised together once every phase has run (so
+# that one run shows all of them)
+GOLDEN_FAILURES: list = []
+
+
+def golden_check(config: str, mode, compare, launches: dict) -> None:
+    """Run one comparison with the golden outputs (``compare()``, a call of
+    ``tools/golden_compare.py``) and print its line: the events of both,
+    how many are identical, the ties with their margins, the sampled
+    blocks' largest differences, the run's launches and the fixture hashes
+    matched; or the fault, kept for the end of the run."""
+    import golden_compare as gc
+
+    line = {"phase": "golden", "config": config, "mode": mode}
+    try:
+        emit({**line, "ok": True, **compare(), "launches": launches})
+    except (gc.FixtureDiffers, gc.GoldenMismatch) as e:
+        emit({**line, "ok": False, "error": f"{type(e).__name__}: {e}"[:4000],
+              "launches": launches})
+        GOLDEN_FAILURES.append(f"{config} {mode}: {type(e).__name__}")
 
 
 def read_rows(path: str) -> list:
@@ -538,25 +579,36 @@ def phase_e2e(tmp: str) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    import golden_compare as gc
+    import golden_fixtures as gf
+
     from meteor_scatter_tpu_torch.apps import analyze
     from meteor_scatter_tpu_torch.ops.kernels import adaptive_kernel as ak
 
     wav = os.path.join(tmp, ANALYZE_WAV)
     t0 = time.perf_counter()
-    starts = synth_wav(wav, HOURS, seed=2026)
+    day = gf.g1_day()
+    gf.write_wav(wav, day.fs, day.pcm)
+    starts, hashes = day.tones, day.hour_sha256
+    del day
     synth_s = time.perf_counter() - t0
     n_blocks = FS * HOURS * 3600 // int(FS * BLOCK_SEC)
+    if (gf.K1_CHUNK_BLOCKS, gf.ANALYZER_WINDOW_BLOCKS) != (ak.MAX_FUSED_BLOCKS,
+                                                          SOLVER["window_blocks"]):
+        raise AssertionError("tools/golden_fixtures.py's chunk seams are not the solver's")
     chunk = ak.MAX_FUSED_BLOCKS - SOLVER["window_blocks"]
     want_launches = 1 if n_blocks <= ak.MAX_FUSED_BLOCKS else math.ceil(n_blocks / chunk)
+    golden = gc.load("G1")
 
-    out = {k: os.path.join(tmp, k) for k in ("fused.csv", "fused.txt", "par.csv", "par.txt")}
+    out = {k: os.path.join(tmp, k) for k in ("fused.csv", "fused.txt", "par.csv", "par.txt",
+                                             "fixed.csv", "fixed.txt")}
     # --- the main path, through the CLI entry point; counted launches ---
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ak.launches = ak.walk_launches = 0
     log = io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(log):
+    with contextlib.redirect_stdout(log), recording(analyze, "proc_wav_file") as made:
         rc = analyze.main([wav, "--out-csv", out["fused.csv"], "--out-audacity", out["fused.txt"],
                            "--device", DEVICE])
     main_wall = time.perf_counter() - t0
@@ -567,6 +619,24 @@ def phase_e2e(tmp: str) -> dict:
     if launches != want_launches or walk_launches != want_launches:
         raise AssertionError(f"adaptive_solver launched {launches} times ({walk_launches} by the "
                              f"walk route), expected {want_launches} walks")
+    # --- the same files against the JAX package's (tests/data/golden/G1) ---
+    res = made[0]
+    golden_check("G1", "adaptive", lambda: gc.compare_analyzer(
+        golden, "adaptive", hashes, file_text(out["fused.csv"]), file_text(out["fused.txt"]),
+        res.delta_power, res.thresholds, ANALYZER_DB_ATOL, THR_TOL_DB, K2_ATOL[2]),
+        {"adaptive_solver": launches, "walk": walk_launches,
+         "chunk_seams": gf.k1_seam_blocks(n_blocks)})
+    zero_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()), recording(analyze, "proc_wav_file") as made:
+        rc = analyze.main([wav, "--out-csv", out["fixed.csv"], "--out-audacity", out["fixed.txt"],
+                           "--fixed-threshold", "--device", DEVICE])
+    if rc != 0:
+        raise RuntimeError(f"analyze.main --fixed-threshold returned {rc}")
+    res_fixed = made[0]
+    golden_check("G1", "fixed", lambda: gc.compare_analyzer(
+        golden, "fixed", hashes, file_text(out["fixed.csv"]), file_text(out["fixed.txt"]),
+        res_fixed.delta_power, res_fixed.thresholds, ANALYZER_DB_ATOL, THR_TOL_DB, K2_ATOL[2]),
+        launch_counts())
     phases = timer_totals(log.getvalue())
 
     fused = read_rows(out["fused.csv"])
@@ -860,8 +930,11 @@ def phase_kernel_k2(x) -> dict:
 
 def phase_e2e_bandpower(x) -> dict:
     """The fused band-power entry point over the analyzer's day: one K2
-    launch, against the analyzer's ``torch.matmul`` band power."""
+    launch, against the analyzer's ``torch.matmul`` band power and the
+    JAX package's delta (tests/data/golden/G1)."""
     import torch
+
+    import golden_compare as gc
 
     from meteor_scatter_tpu_torch.ops import bandpower as bp
     from meteor_scatter_tpu_torch.ops.kernels import bandpower_kernel as bk
@@ -883,29 +956,12 @@ def phase_e2e_bandpower(x) -> dict:
     out = {"phase": "e2e_bandpower", "frames": int(got[0].shape[0]), "launches": launches,
            "wall_s": wall, "max_abs_err_db_vs_analyzer": errs}
     emit(out)
+    # K2's delta against the JAX package's on the day's sampled blocks
+    record = gc.load("G1")["adaptive"]["blocks"]
+    delta = got[2].cpu().numpy()
+    golden_check("G1", "k2", lambda: gc.compare_sampled_delta(record, delta, K2_ATOL[2]),
+                 {"bandpower": launches})
     return out
-
-
-def synth_live_wav(path: str, hours: float, seed: int) -> np.ndarray:
-    """Noise (std 0.05) plus a 1 s 1000 Hz tone of amplitude 0.6 every 47 s
-    from 20 s on, at 4 kHz, made on the card and written as int16 (levels of
-    tests/test_streaming_headless.py).  Returns the tone start times."""
-    import torch
-
-    from meteor_scatter_tpu_torch.io.wavio import write_wav
-
-    seconds = int(hours * 3600)
-    g = torch.Generator(device=DEVICE).manual_seed(seed)
-    x = torch.randn(LIVE_FS * seconds, generator=g, device=DEVICE) * 0.05
-    starts = np.arange(20.0, seconds - 5.0, TONE_EVERY_SEC)
-    j = torch.arange(LIVE_FS, dtype=torch.float64, device=DEVICE)
-    for s in starts:
-        a = int(round(s * LIVE_FS))
-        x[a : a + LIVE_FS] += (0.6 * torch.sin(2 * math.pi * LIVE_TONE_HZ * (a + j) / LIVE_FS)).float()
-    pcm = torch.clamp(torch.round(x * 32768.0), -32768, 32767).to(torch.int16).cpu().numpy()
-    del x
-    write_wav(path, LIVE_FS, pcm)
-    return starts
 
 
 EVENT_LINE = re.compile(r"^Detected Meteor: start=([0-9.]+)s stop=([0-9.]+)s", re.M)
@@ -957,12 +1013,18 @@ def phase_e2e_live(tmp: str) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    import golden_compare as gc
+    import golden_fixtures as gf
+
     from meteor_scatter_tpu_torch.apps import live
     from meteor_scatter_tpu_torch.io.wavio import read_wav
 
     wav = os.path.join(tmp, "live_4khz_24h.wav")
     t0 = time.perf_counter()
-    starts = synth_live_wav(wav, LIVE_HOURS, seed=47)
+    day = gf.g2_day()
+    gf.write_wav(wav, day.fs, day.pcm)
+    starts, hashes = day.tones, day.hour_sha256
+    del day
     synth_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     read_wav(wav, mono=True)
@@ -970,8 +1032,11 @@ def phase_e2e_live(tmp: str) -> dict:
     seconds = LIVE_HOURS * 3600
     feeds = math.ceil(seconds / 60.0)
 
+    if LIVE_ARGS != gf.G2_ARGS:
+        raise AssertionError("the live arguments are not the golden output's")
     # --- the main path: the CLI, welch front, impl auto (fused on the card) ---
-    welch, text, wall, launches, peak = run_live_main([wav, "--device", DEVICE, *LIVE_ARGS])
+    with recording(live, "wav_file_process") as sessions:
+        welch, text, wall, launches, peak = run_live_main([wav, "--device", DEVICE, *LIVE_ARGS])
     if launches != feeds:
         raise AssertionError(f"stream_machine launched {launches} times, expected {feeds}")
     if "overflow" in text:
@@ -979,6 +1044,14 @@ def phase_e2e_live(tmp: str) -> dict:
     missed = missed_tones(starts, welch)
     if missed:
         raise AssertionError(f"{len(missed)} of {len(starts)} tones not detected, first {missed[:5]}")
+    # --- the lines and the unrounded events against the JAX package's ---
+    lines = text.splitlines()
+    golden_check("G2", None, lambda: gc.compare_live(
+        gc.load("G2"), hashes, [ln for ln in lines if ln.startswith("Detected Meteor:")],
+        [ln for ln in lines if ln.startswith("Total detected meteors:")],
+        [[float(ev[k]) for k in gc.STREAM_FIELDS] for ev in sessions[0]], EVENT_DB_TOL,
+        DURATION_TOL),
+        {"stream_machine": launches, "feeds": feeds})
 
     # --- fused == scan on the first hour (the scan is K3's twin on the card) ---
     cfg = live_config()
@@ -1030,38 +1103,35 @@ def phase_e2e_live(tmp: str) -> dict:
 
 
 def stations_fixture():
-    """BASELINE config 5: 64 stations x 600 s at 4 kHz (the fixture of the
-    reference package's stations benchmark, seed 7), a 1 s tone a station,
-    uploaded pre-blocked.  Returns (x (64, 3 000, 800) on the card, the
-    samples a station, the tones' start times)."""
+    """BASELINE config 5 (``tools/golden_fixtures.py::g3_stations``): 64
+    stations x 600 s at 4 kHz, a 1 s tone a station, uploaded pre-blocked.
+    Returns (x (64, 3 000, 800) on the card, the samples a station, the
+    tones' start times, each station's SHA-256)."""
     import torch
 
+    import golden_fixtures as gf
+
+    x_np, tones = gf.g3_stations()
     block = int(round(BLOCK_SEC * LIVE_FS))
-    n = int(LIVE_FS * STATION_SECONDS) // block * block
-    rng = np.random.default_rng(7)
-    x_np = rng.standard_normal((STATIONS, n)).astype(np.float32) * 0.3
-    t = np.arange(n) / LIVE_FS
-    tones = []
-    for c in range(STATIONS):
-        s0 = 20.0 + (7.0 * c) % max(STATION_SECONDS - 30.0, 1.0)
-        m = (t >= s0) & (t < s0 + 1.0)
-        x_np[c, m] += 1.5 * np.sin(2 * np.pi * LIVE_TONE_HZ * t[m]).astype(np.float32)
-        tones.append(s0)
-    return torch.from_numpy(x_np.reshape(STATIONS, n // block, block)).to(DEVICE), n, tones
+    x = torch.from_numpy(x_np.reshape(STATIONS, -1, block)).to(DEVICE)
+    return x, x_np.shape[1], tones, gf.station_hashes(x_np)
 
 
 def phase_e2e_stations() -> dict:
     """64 stations x 600 s (:func:`stations_fixture`), uploaded pre-blocked;
-    one K3 launch for the batch."""
+    one K3 launch for the batch, against the JAX package's events
+    (tests/data/golden/G3)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    import golden_compare as gc
 
     from meteor_scatter_tpu_torch.models import streaming as st
     from meteor_scatter_tpu_torch.ops.kernels import stream_kernel as sk
 
     cfg = live_config()
     scfg = st.StreamConfig.from_config(cfg)
-    x, n, tones = stations_fixture()
+    x, n, tones, x_sha = stations_fixture()
     st0 = st.stream_init_batch(scfg, STATIONS, device=DEVICE)
 
     # --- the main path: bins front, then one fused launch for all stations ---
@@ -1088,6 +1158,13 @@ def phase_e2e_stations() -> dict:
               if missed_tones([tones[c]], list(zip(t0s[c, : counts[c]], t1s[c, : counts[c]])))]
     if missed or bool(ev_f.overflow.any()):
         raise AssertionError(f"stations: tones missed at stations {missed[:8]}")
+    # --- K3's events and thresholds against the JAX package's vmapped scan ---
+    fields = [getattr(ev_f, k).cpu().numpy() for k in gc.STREAM_FIELDS]
+    events = [[[float(f[c, i]) for f in fields] for i in range(counts[c])] for c in range(STATIONS)]
+    on_h, thr_h = on.cpu().numpy(), thr_f.cpu().numpy()
+    golden_check("G3", None, lambda: gc.compare_stations(
+        gc.load("G3"), x_sha, events, ev_f.overflow.cpu().tolist(), on_h, thr_h, EVENT_DB_TOL,
+        DURATION_TOL, THR_TOL_DB), {"stream_machine": launches})
 
     def pipeline():
         o, p, _ = st.stream_front_headless(cfg, x, LIVE_FS)
@@ -1172,25 +1249,31 @@ def phase_e2e_frontend() -> dict:
 
     import torch
 
+    import golden_compare as gc
+    import golden_fixtures as gf
+
     from meteor_scatter_tpu_torch.apps import frontend as fe
     from meteor_scatter_tpu_torch.models import adaptive
     from meteor_scatter_tpu_torch.ops.fir import resample_poly
 
+    golden = gc.load("G4")
+    if golden["fixture"]["argv"] != gf.G4_ARGV:
+        raise AssertionError("the golden output's front-end arguments are not the fixture's")
     out = {"phase": "e2e_frontend", "fs": FRONTEND_FS, "stations": FRONTEND_STATIONS}
     fs_i = int(FRONTEND_FS)
     decim, up, down = fe._stages(fs_i, 6000, 2500.0)
     for iq in (False, True):
         label = "iq" if iq else "real"
-        argv = ["--fs", str(FRONTEND_FS), "--seconds", str(FRONTEND_SECONDS),
-                "--stations", str(FRONTEND_STATIONS), "--base-freq", str(FRONTEND_BASE_HZ),
-                "--spacing", str(FRONTEND_SPACING_HZ), "--device", DEVICE] + (["--iq"] if iq else [])
+        # FRONTEND_* as the golden fixture's arguments
+        argv = [*gf.G4_ARGV, "--device", DEVICE] + (["--iq"] if iq else [])
         # --- the main path, through the CLI entry point ---
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         zero_launch_counts()
         log = io.StringIO()
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(log):
+        with contextlib.redirect_stdout(log), recording(
+                fe, "synth_wideband_iq" if iq else "synth_wideband") as made:
             rc = fe.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1198,6 +1281,12 @@ def phase_e2e_frontend() -> dict:
         peak = torch.cuda.max_memory_allocated()
         if rc != 0:
             raise RuntimeError(f"frontend.main {argv} returned {rc}")
+        # --- the station lines against the JAX package's CLI on the same capture ---
+        hashes = [gf.sha256(a) for a in made[0][:-1]]
+        del made[:]
+        golden_check("G4", label, lambda: gc.compare_frontend(
+            golden, label, hashes,
+            [ln for ln in log.getvalue().splitlines() if ln.startswith("station ")]), launches)
         rows = STATION_LINE.findall(log.getvalue())
         if len(rows) != FRONTEND_STATIONS:
             raise AssertionError(f"frontend.main printed {len(rows)} station lines:\n{log.getvalue()}")
@@ -1402,41 +1491,19 @@ def bursts_equal(a: dict, b: dict) -> bool:
     return all(a[f].dtype == b[f].dtype and np.array_equal(a[f], b[f]) for f in a)
 
 
-def synth_monitor_wav(path: str, hours: int, seed: int) -> list:
-    """Noise std 300 at 5 kHz with a 1 s 1000 Hz burst of amplitude 3000 in
-    every 30 s segment but each fifth, at 5 + (k mod 20) s into segment k;
-    made on the card and written as int16.  Returns which segments hold a
-    burst."""
-    import torch
-
-    from meteor_scatter_tpu_torch.io.wavio import write_wav
-
-    seg = MONITOR_FS * MONITOR_SEG_SEC
-    n_seg = hours * 3600 // MONITOR_SEG_SEC
-    g = torch.Generator(device=DEVICE).manual_seed(seed)
-    x = torch.randn(n_seg * seg, generator=g, device=DEVICE) * IMAGE_NOISE
-    j = torch.arange(MONITOR_FS, dtype=torch.float64, device=DEVICE)
-    burst = [k % 5 != 4 for k in range(n_seg)]
-    for k in range(n_seg):
-        if burst[k]:
-            a = k * seg + (5 + k % 20) * MONITOR_FS
-            x[a : a + MONITOR_FS] += (IMAGE_AMP * torch.sin(
-                2 * math.pi * IMAGE_TONE_HZ * (a + j) / MONITOR_FS)).float()
-    pcm = torch.clamp(torch.round(x), -32768, 32767).to(torch.int16).cpu().numpy()
-    del x
-    write_wav(path, MONITOR_FS, pcm)
-    return burst
-
-
 def phase_e2e_monitor(tmp: str) -> dict:
     """The segment monitor: (a) the batch fixture as one (8, 150 000) call of
     ``detect_and_cluster_bursts`` on the card in both keypoint modes, held
     against the port on the CPU, timed, with its label rounds and a
-    profile; (b) ``apps.monitor.main --wav`` over a synthetic 6 h day."""
+    profile; (b) ``apps.monitor.main --wav`` over a synthetic 6 h day,
+    against the JAX CLI's outputs (tests/data/golden/G5)."""
     import datetime
 
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    import golden_compare as gc
+    import golden_fixtures as gf
 
     from meteor_scatter_tpu_torch.apps import monitor
     from meteor_scatter_tpu_torch.io.ledger import HourlyLedger
@@ -1519,8 +1586,14 @@ def phase_e2e_monitor(tmp: str) -> dict:
     # --- (b) the CLI over a synthetic day: hourly ledger and PNGs ---
     wav = os.path.join(tmp, "monitor_5khz.wav")
     t0 = time.perf_counter()
-    burst = synth_monitor_wav(wav, MONITOR_HOURS, seed=5)
+    day = gf.g5_day()
+    gf.write_wav(wav, day.fs, day.pcm)
+    hashes = day.hour_sha256
+    del day
+    burst = gf.g5_bursts()
     synth_s = time.perf_counter() - t0
+    if (MONITOR_START, MONITOR_HOURS, MONITOR_FS) != (gf.G5_START, gf.G5_HOURS, gf.G5_FS):
+        raise AssertionError("the monitor replay is not the golden fixture's")
     csv_dir, png_dir, truth_dir = (os.path.join(tmp, d) for d in ("csv", "png", "truth"))
     torch.cuda.synchronize()
     zero_launch_counts()
@@ -1535,6 +1608,9 @@ def phase_e2e_monitor(tmp: str) -> dict:
     if rc != 0 or any(launches.values()):
         raise AssertionError(f"monitor.main returned {rc}, launched {launches}")
     text = log.getvalue()
+    # --- the ledger, journals, PNG names and counts against the JAX CLI's ---
+    outputs = gc.monitor_outputs(csv_dir, png_dir, text)
+    golden_check("G5", None, lambda: gc.compare_monitor(gc.load("G5"), hashes, outputs), launches)
     crit = [int(v) for v in re.findall(r"^Critical bursts this segment: (\d+)$", text, re.M)]
     non = [int(v) for v in re.findall(r"^Non-critical bursts this segment: (\d+)$", text, re.M)]
     wrong = [k for k, (c, n_) in enumerate(zip(crit, non)) if (c, n_) != (int(burst[k]), 0)]
@@ -2011,7 +2087,7 @@ def phase_e2e_sharded(tmp: str, iq: dict) -> tuple:
     # --- (b) BASELINE config 5: 64 stations, 2 x 4 mesh, bins front, K3 ---
     cfg = live_config()
     scfg = st.StreamConfig.from_config(cfg)
-    x, n, _ = stations_fixture()
+    x, n, _, _ = stations_fixture()
     st0 = st.stream_init_batch(scfg, STATIONS, device=DEVICE)
     mesh = make_mesh(2, 4, [card] * 8)
 
@@ -2323,7 +2399,7 @@ def phase_e2e_multiproc(tmp: str, iq: dict, day_delta: np.ndarray) -> dict:
                    "that spans processes, not scaling", "not_run": []}
     cfg = live_config()
     scfg = st.StreamConfig.from_config(cfg)
-    x, _, _ = stations_fixture()
+    x, _, _, _ = stations_fixture()
     st0 = st.stream_init_batch(scfg, STATIONS, device=DEVICE)
     fs = int(FRONTEND_FS)
     bank = (IQ_BANDWIDTH, IQ_DECIM, IQ_NUMTAPS)
@@ -2596,7 +2672,7 @@ def phase_e2e_episode(tmp: str) -> dict:
     out = {"phase": "e2e_episode", "nvidia_smi": nvidia_smi_line()}
     cfg = live_config()
     scfg = st.StreamConfig.from_config(cfg)
-    x, n, _ = stations_fixture()
+    x, n, _, _ = stations_fixture()
     st0 = st.stream_init_batch(scfg, STATIONS, device=DEVICE)
     k3_launches = 0  # of the routed solvers on the main paths
 
@@ -2925,14 +3001,14 @@ def phase_e2e_determinism(day_wav: str, fe_delta) -> dict:
 
     float_distinct = distinct_bits(float_sums)
     if distinct_ev != 1 or not helper_equal or not same_runs or bool(ev.overflow) \
-            or n_ev == 0 or not db_err <= DETERMINISM_DB_ATOL:
+            or n_ev == 0 or not db_err <= ANALYZER_DB_ATOL:
         raise AssertionError(f"events_from_mask: {distinct_ev} distinct results, helper == CPU "
                              f"{helper_equal}, runs equal the CPU's {same_runs}, {n_ev} events, "
                              f"dB err {db_err}")
     out["events_from_mask"] = {
         "blocks": int(delta.shape[0]), "events": n_ev, "distinct_results": distinct_ev,
         "means_equal_cpu_helper_bits": True, "runs_equal_cpu": True,
-        "db_max_abs_err_vs_cpu_float": db_err, "db_atol": DETERMINISM_DB_ATOL,
+        "db_max_abs_err_vs_cpu_float": db_err, "db_atol": ANALYZER_DB_ATOL,
         "float_scatter_add_distinct": float_distinct,
         "ms": cuda_ms(lambda: tev.events_from_mask(above, delta, cap), warmup=1, reps=5),
         "fixed_point_means_ms": cuda_ms(lambda: tev.fixed_point_run_means(above, delta, cap),
@@ -3067,6 +3143,9 @@ def main() -> int:
             e2e_mp = phase_e2e_multiproc(tmp, iq, day_delta)
         del iq
         phase_e2e_determinism(day_wav, fe_delta)
+    if GOLDEN_FAILURES:
+        raise AssertionError(f"the card differs from the JAX package's golden outputs: "
+                             f"{GOLDEN_FAILURES}")
     loaded = port_modules_loaded_from_jax()
     if loaded:
         raise AssertionError(f"the port loaded JAX or the JAX package: {loaded[:5]}")

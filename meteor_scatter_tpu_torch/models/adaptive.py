@@ -18,7 +18,8 @@ Two solvers of :func:`detect_adaptive`, both giving the same above mask:
 * ``"fused"`` — the fused solver of
   :mod:`meteor_scatter_tpu_torch.ops.kernels.adaptive_kernel` (the CUDA
   kernel on a GPU, its plain twin on the CPU), chunked exactly beyond
-  ``MAX_FUSED_BLOCKS``, then :func:`events_from_run_sums`.
+  ``MAX_FUSED_BLOCKS``, then :func:`events_from_mask` on the whole
+  series' above mask.
 
 The sequential recurrence itself, :func:`adaptive_thresholds` (a loop over
 blocks with a carry), serves chunked calls and the time-sharded warm start
@@ -36,10 +37,7 @@ import torch
 from meteor_scatter_tpu_torch.models.events import (
     Events,
     events_from_mask,
-    events_from_run_sums,
-    merge_adjacent,
     to_fixed_point,
-    truncate_events,
 )
 from meteor_scatter_tpu_torch.ops.kernels import adaptive_kernel as ak
 
@@ -343,13 +341,20 @@ def _detect_adaptive_fused(delta: torch.Tensor, cap: int, **kw) -> Tuple[Events,
     series fits ``MAX_FUSED_BLOCKS``, otherwise exact chunked execution —
     each chunk gets a ``window_blocks`` delta halo (its rolling-statistics
     history), the carried freeze horizon / standing threshold, and the
-    whole-series fixed threshold; seam-spanning runs merge via
-    ``merge_adjacent``.  The carries stay on the device: nothing here waits
-    on the host between chunks."""
+    whole-series fixed threshold.  The carries stay on the device: nothing
+    here waits on the host between chunks.
+
+    The events come from the whole series' above mask by
+    :func:`events_from_mask`, as on the parallel route: their means are the
+    reference's ``segment_sum`` on the CPU and exact on a card.  The
+    solver's own run sums (a float32 prefix sum of the masked series) would
+    carry its rounding into every mean -- 1.7e-4 dB on the first hour of a
+    day, past the analyzer's 1e-4 against the JAX package
+    (``tests/test_torch_golden.py``)."""
     n = delta.shape[0]
     if n <= ak.MAX_FUSED_BLOCKS:
-        thresholds, above, s_incl, csm = ak.adaptive_solver_fused(delta, **kw)
-        return events_from_run_sums(s_incl, csm, above, cap), thresholds
+        thresholds, above, _, _ = ak.adaptive_solver_fused(delta, **kw)
+        return events_from_mask(above, delta, cap), thresholds
 
     k = kw["threshold_std_factor"]
     w = kw["window_blocks"]
@@ -358,24 +363,19 @@ def _detect_adaptive_fused(delta: torch.Tensor, cap: int, **kw) -> Tuple[Events,
     fixed_thr = delta.mean() + k * delta.std(correction=0)  # whole-file, two-pass
     chunk = ak.MAX_FUSED_BLOCKS - w
 
-    events = None
-    thr_parts = []
+    thr_parts, above_parts = [], []
     freeze_in = torch.tensor(-1, dtype=torch.int32, device=delta.device)
     thr_in = fixed_thr
     for c0 in range(0, n, chunk):
         c1 = min(c0 + chunk, n)
         halo = w if c0 else 0
-        thr_c, above_c, s_c, cs_c = ak.adaptive_solver_fused_chunk(
+        thr_c, above_c, _, _ = ak.adaptive_solver_fused_chunk(
             delta[c0 - halo : c1], c0, freeze_in, fixed_thr, thr_in, halo, **kw
         )
-        ev_c = events_from_run_sums(s_c, cs_c, above_c, cap)
-        events = ev_c if events is None else merge_adjacent(events, ev_c, c0)
         thr_parts.append(thr_c)
+        above_parts.append(above_c)
         ii = torch.arange(c0, c1, dtype=torch.int32, device=delta.device)
         f_c = torch.where(above_c, torch.maximum(ii + fa, torch.clamp(ii - fb, min=0)), -1)
         freeze_in = torch.maximum(freeze_in, f_c.max())
         thr_in = thr_c[-1]
-    # merge_adjacent grew the buffer to n_chunks*cap; restore the same
-    # fixed-cap contract as the single-launch path (count ≤ cap, overflow
-    # flags drops)
-    return truncate_events(events, cap), torch.cat(thr_parts)
+    return events_from_mask(torch.cat(above_parts), delta, cap), torch.cat(thr_parts)
