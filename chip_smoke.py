@@ -155,6 +155,13 @@ non-zero (there is no CPU fallback):
    and ``LOCAL_RANK=0`` taking ``cuda:0`` (``process_device``, the scaling
    bench's ``local_devices``).  Its K1 launches are printed on its line and
    not added to the kernel records' counts.
+17. e2e_bench — the port's benchmark, ``torch_bench.main(["--quick",
+   "--multi", "--stations", "--image", "--frontend", "--frontend-iq"])``
+   in this process (bench.py's quick sizes: every metric key, every gate
+   true, nothing implausible; its K1 and K3 launches added to the kernel
+   records), then each timing tool of ``tools/`` (``torch_streaming_bench``,
+   ``torch_stations_bench``, ``torch_stations_breakdown``,
+   ``torch_iq_breakdown``) once at a small size, its events check passed.
 
 The days are made on the host with numpy from seeds
 (``tools/golden_fixtures.py``); ``tests/data/golden/`` holds what the JAX
@@ -193,6 +200,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # tools/golden_fixtures.py (the seeded days) and tools/golden_compare.py
 # (the golden outputs of tests/data/golden/): numpy and the stdlib only
 sys.path.insert(0, os.path.join(REPO, "tools"))
+# the port's benchmark (torch_bench.py): the roofline bound, the nvidia-smi
+# line, the launch counts, bit equality, the image fixture; e2e_bench runs it
+import torch_bench  # noqa: E402
+from torch_bench import bits_equal, bound, launch_counts, nvidia_smi_line  # noqa: E402
+
 FS = 6000
 HOURS = 24
 BLOCK_SEC = 0.2
@@ -263,11 +275,11 @@ IQ_SECONDS, IQ_AUDIO_RATE, IQ_DECIM, IQ_NUMTAPS, IQ_BANDWIDTH = 60.0, 4000, 500,
 IQ_SHARD_REL_TOL = 1e-4
 # The segment monitor (the reference's 24/7 loop, MonitorConfig defaults):
 # 30 s segments at 5 kHz. The batch fixture is the JAX package's
-# bench.py::image_pipeline (8 segments, seed 11, noise std 300, 1 s 1000 Hz
-# bursts of amplitude 3000 at 8 + s and 20 s); the CLI replays a synthetic
+# bench.py::image_pipeline's (torch_bench.image_fixture: 8 segments, seed
+# 11, noise std 300, 1 s 1000 Hz bursts of amplitude 3000 at 8 + s and
+# 20 s); the CLI replays a synthetic
 # 6 h day from 21:00, crossing hourly flushes and one midnight rotation.
 MONITOR_FS, MONITOR_SEG_SEC, MONITOR_BATCH, MONITOR_NFFT = 5000, 30, 8, 2048
-IMAGE_NOISE, IMAGE_AMP, IMAGE_TONE_HZ = 300.0, 3000.0, 1000.0
 MONITOR_HOURS, MONITOR_START = 6, "2026-08-16T21:00:00"
 # e2e_host: live --ui feeds 1 s chunks; 2 min of the live day
 HOST_UI_SECONDS = 120
@@ -300,10 +312,6 @@ ANALYZER_DB_ATOL = 1e-4
 # fixed-threshold day fills.
 DETERMINISM_REPEATS = 20
 DETERMINISM_CAP = 1 << 16
-# Card peaks for the bound (H100 SXM data sheet): HBM bytes/s, FP32 FLOP/s.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-
 KERNELS = {
     "adaptive_solver": dict(
         route="cuda",
@@ -332,14 +340,6 @@ def emit(obj: dict) -> None:
     if "phase" in obj:
         obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout
-    return out.strip().splitlines()[0]
 
 
 def phase_device() -> dict:
@@ -374,15 +374,6 @@ def phase_build() -> None:
             "phase": "build", "kernel": name, "seconds": seconds[name],
             "ptxas": [ln.strip() for ln in log if "registers" in ln or "spill" in ln],
         })
-
-
-def bound(bytes_moved: float, flops: float) -> dict:
-    """The least time the card could take: the larger of the bytes over the
-    HBM rate and the FP32 operations over the FP32 peak."""
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
-    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": bytes_moved, "flops": flops}
 
 
 def k3_bound(C: int, n: int, w: int, cap: int) -> dict:
@@ -708,17 +699,6 @@ def phase_e2e(tmp: str) -> dict:
     }
     emit(e2e)
     return e2e
-
-
-def bits_equal(a, b) -> bool:
-    """Equal bit for bit (NaN payloads included)."""
-    import torch
-
-    if a.dtype != b.dtype or a.shape != b.shape:
-        return False
-    if a.dtype == torch.float32:
-        a, b = a.view(torch.int32), b.view(torch.int32)
-    return bool(torch.equal(a, b))
 
 
 def stream_series(C: int, n: int, seed: int):
@@ -1214,14 +1194,6 @@ def zero_launch_counts() -> None:
     ak.launches = ak.walk_launches = bk.launches = sk.launches = 0
 
 
-def launch_counts() -> dict:
-    from meteor_scatter_tpu_torch.ops.kernels import adaptive_kernel as ak
-    from meteor_scatter_tpu_torch.ops.kernels import bandpower_kernel as bk
-    from meteor_scatter_tpu_torch.ops.kernels import stream_kernel as sk
-
-    return {"adaptive_solver": ak.launches, "bandpower": bk.launches, "stream_machine": sk.launches}
-
-
 STATION_LINE = re.compile(r"^station (\d+) \(.*?\): (\d+) events (\[.*?\]) \(truth: (\[.*\])\)$", re.M)
 
 
@@ -1461,19 +1433,6 @@ def phase_e2e_frontend_iq(iq: dict) -> dict:
     return out
 
 
-def image_batch_fixture() -> np.ndarray:
-    """``bench.py::image_pipeline``'s audio (seed 11): (8, 150 000) float32."""
-    rng = np.random.default_rng(11)
-    n = MONITOR_FS * MONITOR_SEG_SEC
-    x = rng.standard_normal((MONITOR_BATCH, n)).astype(np.float32) * IMAGE_NOISE
-    t = np.arange(n) / MONITOR_FS
-    for s in range(MONITOR_BATCH):
-        for b0 in (8.0 + s, 20.0):
-            m = (t >= b0) & (t < b0 + 1.0)
-            x[s, m] += IMAGE_AMP * np.sin(2 * np.pi * IMAGE_TONE_HZ * t[m]).astype(np.float32)
-    return x
-
-
 def file_bytes(path: str):
     """A file's bytes, or None where there is no file."""
     if not os.path.exists(path):
@@ -1510,7 +1469,7 @@ def phase_e2e_monitor(tmp: str) -> dict:
     from meteor_scatter_tpu_torch.models import image as im
 
     fs = float(MONITOR_FS)
-    x_np = image_batch_fixture()
+    x_np = torch_bench.image_fixture(MONITOR_BATCH, MONITOR_SEG_SEC, MONITOR_FS)
     x = torch.from_numpy(x_np).to(DEVICE)
     out = {"phase": "e2e_monitor", "batch_segments": MONITOR_BATCH, "fs": MONITOR_FS}
     for mode in ("threshold", "corner"):
@@ -3096,6 +3055,77 @@ def phase_e2e_determinism(day_wav: str, fe_delta) -> dict:
     return out
 
 
+# e2e_bench: torch_bench.py at bench.py's --quick sizes with every metric,
+# the keys its artifact must hold, and each timing tool of tools/ once at a
+# small size (the 64 stations cut to 8 x 120 s, 3 min of the live hour, 2 s
+# of the I/Q capture), the scan (K3's twin, seconds a call on the card) as
+# the tools' reference only
+BENCH_ARGV = ["--quick", "--multi", "--stations", "--image", "--frontend", "--frontend-iq"]
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "date", "multi8_samples_per_sec",
+              "stations64_samples_per_sec", "image_samples_per_sec",
+              "channelizer_input_samples_per_sec", "frontend_iq_2msps_samples_per_sec",
+              "fused_equals_parallel", "stations_fused_equals_scan",
+              "frontend_iq_framed_equals_flat")
+BENCH_TOOLS = {
+    "torch_streaming_bench": ["--hours", "0.05", "--reps", "3",
+                              "--combos", "bins:jump,bins:hop,welch:fused,bins:fused"],
+    "torch_stations_bench": ["--stations", "8", "--seconds", "120", "--reps", "5",
+                             "--impls", "jump,hop,fused"],
+    "torch_stations_breakdown": ["--stations", "8", "--seconds", "120", "--reps", "20"],
+    "torch_iq_breakdown": ["--seconds", "2", "--reps", "20"],
+}
+
+
+def last_json(text: str) -> dict:
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def phase_e2e_bench() -> dict:
+    """``torch_bench.main(BENCH_ARGV)`` in this process, so that the launch
+    counts see its K1 and K3 launches: exit 0, every key of
+    :data:`BENCH_KEYS`, every gate true, nothing implausible, K1 and K3
+    launched.  Then each timing tool of ``tools/`` once at a small size
+    (:data:`BENCH_TOOLS`), which exits 0 only when its events check
+    passed.  The tools' launches are printed on the line and not added to
+    the kernel records' counts."""
+    import importlib
+
+    import torch
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    zero_launch_counts()
+    with contextlib.redirect_stdout(out):
+        rc = torch_bench.main(BENCH_ARGV)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    bench_s = time.perf_counter() - t0
+    artifact = last_json(out.getvalue())
+    missing = [k for k in BENCH_KEYS if k not in artifact]
+    failed = [g for g in torch_bench.GATES if artifact.get(g) is False]
+    if rc != 0 or missing or failed or "implausible" in artifact:
+        raise AssertionError(f"torch_bench.py exited {rc}: keys missing {missing}, gates failed "
+                             f"{failed}, implausible {artifact.get('implausible')}")
+    if launches["adaptive_solver"] < 1 or launches["stream_machine"] < 1:
+        raise AssertionError(f"torch_bench.py launched {launches}: K1 and K3 expected")
+
+    tools = {}
+    zero_launch_counts()
+    for name, argv in BENCH_TOOLS.items():
+        text = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            rc = importlib.import_module(name).main(argv)
+        if rc != 0:
+            raise AssertionError(f"tools/{name}.py {argv} exited {rc}: {text.getvalue()[-2000:]}")
+        tools[name] = {"argv": argv, "seconds": time.perf_counter() - t1,
+                       "result": last_json(text.getvalue())}
+    out = {"phase": "e2e_bench", "argv": BENCH_ARGV, "bench_s": bench_s, "launches": launches,
+           "artifact": artifact, "tools": tools, "tool_launches": launch_counts()}
+    emit(out)
+    return out
+
+
 def port_modules_loaded_from_jax() -> list:
     """JAX or JAX-package modules present in this process."""
     return [k for k, v in sys.modules.items() if v is not None and (
@@ -3143,6 +3173,7 @@ def main() -> int:
             e2e_mp = phase_e2e_multiproc(tmp, iq, day_delta)
         del iq
         phase_e2e_determinism(day_wav, fe_delta)
+    e2e_bench = phase_e2e_bench()
     if GOLDEN_FAILURES:
         raise AssertionError(f"the card differs from the JAX package's golden outputs: "
                              f"{GOLDEN_FAILURES}")
@@ -3150,9 +3181,12 @@ def main() -> int:
     if loaded:
         raise AssertionError(f"the port loaded JAX or the JAX package: {loaded[:5]}")
 
-    launches = {"adaptive_solver": e2e["launches"], "bandpower": e2e_bp["launches"],
+    bench = e2e_bench["launches"]
+    launches = {"adaptive_solver": e2e["launches"] + bench["adaptive_solver"],
+                "bandpower": e2e_bp["launches"] + bench["bandpower"],
                 "stream_machine": e2e_live["launches"] + e2e_st["launches"] + e2e_fiq["launches"]
-                + e2e_mp["k3_launches_children"] + e2e_ep["k3_launches"]}
+                + e2e_mp["k3_launches_children"] + e2e_ep["k3_launches"]
+                + bench["stream_machine"]}
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(nvidia_smi_line())
     emit({"kernels": [{"name": name, **KERNELS[name], "launches": launches[name], **records[name]}
