@@ -157,11 +157,16 @@ non-zero (there is no CPU fallback):
    not added to the kernel records' counts.
 17. e2e_bench — the port's benchmark, ``torch_bench.main(["--quick",
    "--multi", "--stations", "--image", "--frontend", "--frontend-iq"])``
-   in this process (bench.py's quick sizes: every metric key, every gate
-   true, nothing implausible; its K1 and K3 launches added to the kernel
-   records), then each timing tool of ``tools/`` (``torch_streaming_bench``,
-   ``torch_stations_bench``, ``torch_stations_breakdown``,
-   ``torch_iq_breakdown``) once at a small size, its events check passed.
+   in this process (bench.py's quick sizes: every metric key, the chained
+   keys of every key but image, each call captured as a CUDA graph and
+   replayed k times, every gate true, the five ``chain_equals_eager``
+   among them, nothing implausible; a line ``e2e_bench_chained`` with each
+   chained key's t1 / tk / chained / single-call ms and K1's and K3's
+   launches in the replays; its K1 and K3 launches, the replays' included,
+   added to the kernel records), then each timing tool of ``tools/``
+   (``torch_streaming_bench``, ``torch_stations_bench``,
+   ``torch_stations_breakdown``, ``torch_iq_breakdown``) once at a small
+   size, its events check passed.
 
 The days are made on the host with numpy from seeds
 (``tools/golden_fixtures.py``); ``tests/data/golden/`` holds what the JAX
@@ -3064,8 +3069,17 @@ BENCH_ARGV = ["--quick", "--multi", "--stations", "--image", "--frontend", "--fr
 BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "date", "multi8_samples_per_sec",
               "stations64_samples_per_sec", "image_samples_per_sec",
               "channelizer_input_samples_per_sec", "frontend_iq_2msps_samples_per_sec",
-              "fused_equals_parallel", "stations_fused_equals_scan",
-              "frontend_iq_framed_equals_flat")
+              *torch_bench.CHAINED_RATES.values(),
+              *(g for g in torch_bench.GATES if g != "stations_golden_G3"))  # G3: 600 s only
+# the chained keys (torch_bench.py's CUDA-graph replays): their artifact
+# prefix, and the K1 / K3 launches one replay must hold
+BENCH_CHAINED = {
+    "value": ("", {"adaptive_solver": 1, "bandpower": 0, "stream_machine": 0}),
+    "multi8": ("multi8_", {"adaptive_solver": 8, "bandpower": 0, "stream_machine": 0}),
+    "stations64": ("stations64_", {"adaptive_solver": 0, "bandpower": 0, "stream_machine": 1}),
+    "channelizer": ("channelizer_", {"adaptive_solver": 0, "bandpower": 0, "stream_machine": 0}),
+    "frontend_iq": ("frontend_iq_", {"adaptive_solver": 0, "bandpower": 0, "stream_machine": 1}),
+}
 BENCH_TOOLS = {
     "torch_streaming_bench": ["--hours", "0.05", "--reps", "3",
                               "--combos", "bins:jump,bins:hop,welch:fused,bins:fused"],
@@ -3083,9 +3097,16 @@ def last_json(text: str) -> dict:
 def phase_e2e_bench() -> dict:
     """``torch_bench.main(BENCH_ARGV)`` in this process, so that the launch
     counts see its K1 and K3 launches: exit 0, every key of
-    :data:`BENCH_KEYS`, every gate true, nothing implausible, K1 and K3
-    launched.  Then each timing tool of ``tools/`` once at a small size
-    (:data:`BENCH_TOOLS`), which exits 0 only when its events check
+    :data:`BENCH_KEYS`, every gate true (the five ``chain_equals_eager``
+    among them), nothing implausible, K1 and K3 launched.  The chained keys
+    replay CUDA graphs, which the wrappers' counts do not see: a line
+    ``e2e_bench_chained`` prints per key ``chain_k``, ``t1_ms``, ``tk_ms``,
+    the chained and the single-call ms, and K1's and K3's launches in the
+    replays, counted as the replays times the launches one capture recorded
+    (the wrappers count a launch while a capture records it).  The phase's
+    ``launches`` are then the eager launches (the counts less the captures')
+    plus the replays'.  Then each timing tool of ``tools/`` once at a small
+    size (:data:`BENCH_TOOLS`), which exits 0 only when its events check
     passed.  The tools' launches are printed on the line and not added to
     the kernel records' counts."""
     import importlib
@@ -3106,6 +3127,24 @@ def phase_e2e_bench() -> dict:
     if rc != 0 or missing or failed or "implausible" in artifact:
         raise AssertionError(f"torch_bench.py exited {rc}: keys missing {missing}, gates failed "
                              f"{failed}, implausible {artifact.get('implausible')}")
+    chained, captured, replayed = {}, dict.fromkeys(launches, 0), dict.fromkeys(launches, 0)
+    for key, (p, expected) in BENCH_CHAINED.items():
+        per_replay = artifact[f"{p}chain_launches_per_replay"]
+        replays = artifact[f"{p}chain_replays"]
+        if per_replay != expected:
+            raise AssertionError(f"{key}: a replay holds {per_replay} launches, not {expected}")
+        for name, n in per_replay.items():
+            captured[name] += n
+            replayed[name] += n * replays
+        chained[key] = {"chain_k": artifact[f"{p}chain_k"], "t1_ms": artifact[f"{p}t1_ms"],
+                        "tk_ms": artifact[f"{p}tk_ms"], "chained_ms": artifact[f"{p}chained_ms"],
+                        "single_call_median_ms": artifact[f"{p}median_ms"],
+                        "noise_bound": artifact.get(f"{p}noise_bound", False),
+                        "chain_equals_eager": artifact[f"{p}chain_equals_eager"],
+                        "replays": replays, "launches_per_replay": per_replay}
+    emit({"phase": "e2e_bench_chained", "keys": chained, "k1_k3_launches_replayed": replayed,
+          "counted_as": "replays x launches recorded by one capture"})
+    launches = {name: launches[name] - captured[name] + replayed[name] for name in launches}
     if launches["adaptive_solver"] < 1 or launches["stream_machine"] < 1:
         raise AssertionError(f"torch_bench.py launched {launches}: K1 and K3 expected")
 

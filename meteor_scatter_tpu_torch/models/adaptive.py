@@ -364,7 +364,7 @@ def _detect_adaptive_fused(delta: torch.Tensor, cap: int, **kw) -> Tuple[Events,
     chunk = ak.MAX_FUSED_BLOCKS - w
 
     thr_parts, above_parts = [], []
-    freeze_in = torch.tensor(-1, dtype=torch.int32, device=delta.device)
+    freeze_in = torch.full((), -1, dtype=torch.int32, device=delta.device)
     thr_in = fixed_thr
     for c0 in range(0, n, chunk):
         c1 = min(c0 + chunk, n)

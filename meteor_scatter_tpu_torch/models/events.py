@@ -77,6 +77,10 @@ def _run_slots(above: torch.Tensor, cap: int) -> Tuple[torch.Tensor, torch.Tenso
     return is_start, run_id, torch.where(above & (run_id < cap), run_id, cap).long()
 
 
+_FIXED_POINT_RANGE = ("to_fixed_point: n * max|x| reaches 2^61, past the int64 fixed point's "
+                      "range at a scale of at least 1")
+
+
 def to_fixed_point(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Finite values ``x`` (..., n) as int64 fixed point, row by row:
     ``(q, scale)`` with ``q = round(x·scale)`` and ``scale = 2^k`` (float64,
@@ -86,16 +90,23 @@ def to_fixed_point(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     a float ``torch.cumsum`` add in no fixed order, they give the same bits
     on every run and the CPU's.  Raises ``ValueError`` when a row's
     ``n·max|x|`` reaches 2^61 (``k`` would be negative); there is no
-    float fallback."""
+    float fallback.  While a CUDA graph captures the current stream the
+    same condition is a device-side assert (``torch._assert_async``),
+    checked at every replay without a host sync."""
     n = x.shape[-1]
     x = x.to(torch.float64)
     amax = x.abs().amax(-1, keepdim=True) if n else x.new_zeros(x.shape[:-1] + (1,))
     # frexp: n·max|x| < 2^e exactly (a rounded product only rounds up to 2^e)
     _, e = torch.frexp(amax * n)
     k = 61 - e.to(torch.int64)
-    if bool((k < 0).any()):
-        raise ValueError("to_fixed_point: n * max|x| reaches 2^61, past the int64 fixed "
-                         "point's range at a scale of at least 1")
+    out_of_range = (k < 0).any()
+    if x.is_cuda and torch.cuda.is_current_stream_capturing():
+        # a stream that a CUDA graph captures cannot be read on the host:
+        # the card checks the range at every replay, and a failure is a
+        # device-side assert that the next synchronise reports
+        torch._assert_async(~out_of_range, _FIXED_POINT_RANGE)
+    elif bool(out_of_range):
+        raise ValueError(_FIXED_POINT_RANGE)
     scale = ((k + 1023) << 52).view(torch.float64)  # 2^k built from its bits: exact
     return torch.round(x * scale).to(torch.int64), scale
 

@@ -236,9 +236,13 @@ def _run(delta_haloed, i0, freeze_in, fixed_thr, thr_in, halo, k_std, window,
     dev = d.device
 
     def pack(a, b, dtype):
-        return torch.stack(
-            [torch.as_tensor(v, dtype=dtype, device=dev).reshape(()) for v in (a, b)]
-        )
+        # made on the device, never copied from the host: a Python number by
+        # a fill, a tensor by a cast, so that a CUDA graph can capture a call
+        return torch.stack([
+            v.to(device=dev, dtype=dtype).reshape(()) if isinstance(v, torch.Tensor)
+            else torch.full((), v, dtype=dtype, device=dev)
+            for v in (a, b)
+        ])
 
     args = (
         d, pack(i0, freeze_in, torch.int32), pack(fixed_thr, thr_in, torch.float32),

@@ -12,7 +12,9 @@ stops each at the upload of its input); (b) each pipeline and tool passes
 its gate on ``device="cpu"``; (c) ``torch_bench.main`` with every metric and
 the four tools run where ``import jax`` fails, load no module of JAX, of the
 JAX package or of ``bench.py``, and the artifact has every key asked for;
-(d) a gate forced false makes ``torch_bench.main`` exit 1.
+(d) a gate forced false makes ``torch_bench.main`` exit 1.  The chained
+timing's own tests are ``tests/test_torch_chain.py``; here its chains are 2
+calls long.
 """
 
 import contextlib
@@ -48,7 +50,9 @@ SMALL = dict(batch_seconds=60.0, baseline_seconds=5.0, multi_seconds=30.0, stati
              stations_seconds=60.0, image_segments=2, image_seconds=30.0, frontend_seconds=1.0,
              frontend_iq_seconds=2.0, frontend_stations=8)
 ALL_METRICS = ["--multi", "--stations", "--image", "--frontend", "--frontend-iq"]
-METRIC_KEYS = ("metric", "value", "unit", "vs_baseline", "date", *tb.METRIC_BYTES_PER_SAMPLE)
+METRIC_KEYS = ("metric", "value", "unit", "vs_baseline", "date", *tb.METRIC_BYTES_PER_SAMPLE,
+               *tb.CHAINED_RATES.values())
+SHORT_CHAIN = {key: 2 for key in tb.CHAIN_K}  # bench.py's k of 101-201 host calls is for cards
 # the tools where JAX cannot load: smaller still, every module imported
 TOOL_ARGV_TINY = {
     "torch_streaming_bench": ["--hours", "0.01", "--reps", "1", "--combos", "bins:fused"],
@@ -188,20 +192,34 @@ def test_fixture_is_the_jax_side_input(jax_side_inputs, name):
 def test_batch_and_fused_equals_parallel():
     x = tb.synth_audio(300.0, seed=2)
     gate = tb.verify_fused_vs_parallel(x, CPU)
-    head = tb.batch_pipeline(x, CPU, tb.Timing(2, 0))
+    head = tb.batch_pipeline(x, CPU, tb.Timing(2, 0), chain_k=2)
     assert gate["fused_equals_parallel"] and gate["verify_events"] == head["events"] > 0
-    multi = tb.multi_channel_pipeline(2, 60.0, CPU, ONCE)
+    multi = tb.multi_channel_pipeline(2, 60.0, CPU, ONCE, chain_k=2)
     assert multi["multi8_events"] > 0 and multi["multi8_n_calls"] == 1
 
 
 def test_stations_fused_equals_scan():
-    got = tb.stations_pipeline(4, 60.0, CPU, tb.Timing(2, 0))
+    got = tb.stations_pipeline(4, 60.0, CPU, tb.Timing(2, 0), chain_k=2)
     assert got["stations_fused_equals_scan"] and got["stations_events"] == 4
     assert "stations_golden_G3" not in got  # 60 s is not G3's fixture
 
 
-def test_stations_against_golden_g3():
+def skip_chain(monkeypatch):
+    """At G3's 600 s the stations' chain is ten more CPU solves of ~1 s
+    each; tests/test_torch_chain.py holds the chain at small sizes."""
+    real = tb.chained
+
+    def chained(chain, device, k, samples, prefix=None, *rest, **kw):
+        if prefix == "stations64":
+            return {}
+        return real(chain, device, k, samples, prefix, *rest, **kw)
+
+    monkeypatch.setattr(tb, "chained", chained)
+
+
+def test_stations_against_golden_g3(monkeypatch):
     """At 600 s the first call's events are G3's (2 of its 64 stations)."""
+    skip_chain(monkeypatch)
     got = tb.stations_pipeline(2, tb.G3_SECONDS, CPU, ONCE)
     assert got["stations_fused_equals_scan"] and got["stations_golden_G3"], got
     assert got["stations_golden_fixture_hashes_matched"] == 2
@@ -209,9 +227,9 @@ def test_stations_against_golden_g3():
 
 
 def test_frontend_iq_framed_equals_flat():
-    got = tb.frontend_iq_pipeline(20.0, 8, CPU, ONCE)
+    got = tb.frontend_iq_pipeline(20.0, 8, CPU, ONCE, chain_k=2)
     assert got["frontend_iq_framed_equals_flat"] and got["frontend_iq_events"] > 0
-    assert tb.frontend_pipeline(1.0, 8, CPU, ONCE)["channelizer_n_calls"] == 1
+    assert tb.frontend_pipeline(1.0, 8, CPU, ONCE, chain_k=2)["channelizer_n_calls"] == 1
 
 
 def test_image_pipeline_finds_the_bursts():
@@ -274,7 +292,7 @@ def test_jax_free_main_and_tools():
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
             rc = torch_bench.main({ALL_METRICS!r} + ["--device", "cpu"], sizes={SMALL!r}, reps=2,
-                                  warmup=0)
+                                  warmup=0, chain_k={SHORT_CHAIN!r})
         assert rc == 0, out.getvalue()[-2000:]
         artifact = json.loads(out.getvalue().strip().splitlines()[-1])
         for tool, argv in {TOOL_ARGV_TINY!r}.items():
@@ -294,11 +312,14 @@ def test_jax_free_main_and_tools():
     assert [k for k in METRIC_KEYS if k not in art] == []
     assert "implausible" not in art and art["clock"] == "host"
     assert art["device"]["platform"] == "cpu"
-    assert all(art[g] for g in ("fused_equals_parallel", "stations_fused_equals_scan",
-                                "frontend_iq_framed_equals_flat"))
+    assert all(art[g] for g in tb.GATES if g != "stations_golden_G3")
     for p in ("", "multi8_", "stations64_", "image_", "channelizer_", "frontend_iq_"):
         assert art[f"{p}n_calls"] == 2 and art[f"{p}p90_ms"] >= art[f"{p}median_ms"] > 0
         assert f"{p}upload_ms" in art
+    for p in ("", "multi8_", "stations64_", "channelizer_", "frontend_iq_"):
+        assert art[f"{p}chain_k"] == 2 and art[f"{p}chained_ms"] > 0
+        assert len(art[f"{p}t1_ms"]) == len(art[f"{p}tk_ms"]) == 3
+    assert "image_chain_k" not in art  # the label loops test on the host: not chained
 
 
 # ---------------------------------------------------------------------------
@@ -325,6 +346,12 @@ def _louder_flat(real):
     return channelize_iq
 
 
+def _eps_always(real):
+    def nan_eps(t):
+        return real(t) + 1.0
+    return nan_eps
+
+
 def _other_fixture(real):
     def fixture(*args, **kw):
         x, tones = real(*args, **kw)
@@ -342,17 +369,21 @@ FORCED = {
                            ("torch_bench", "stations_fixture", _other_fixture)),
     "frontend_iq_framed_equals_flat": (["--frontend-iq"], {}, ("meteor_scatter_tpu_torch.ops.fir",
                                                               "channelize_iq", _louder_flat)),
+    "chain_equals_eager": ([], {}, ("torch_bench", "nan_eps", _eps_always)),
 }
 
 
 @pytest.mark.parametrize("gate", sorted(FORCED))
 def test_gate_forced_false_exits_1(gate, monkeypatch):
     flags, sizes, (module, name, wrap) = FORCED[gate]
+    if sizes.get("stations_seconds") == tb.G3_SECONDS:
+        skip_chain(monkeypatch)
     mod = importlib.import_module(module)
     monkeypatch.setattr(mod, name, wrap(getattr(mod, name)))
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        rc = tb.main(flags + ["--device", "cpu"], sizes={**SMALL, **sizes}, reps=1, warmup=0)
+        rc = tb.main(flags + ["--device", "cpu"], sizes={**SMALL, **sizes}, reps=1, warmup=0,
+                     chain_k=SHORT_CHAIN)
     artifact = json.loads(out.getvalue().strip().splitlines()[-1])
     assert rc == 1 and artifact[gate] is False
     assert [g for g in tb.GATES if artifact.get(g) is False] == [gate]

@@ -20,8 +20,10 @@ virtual 2 x 4 mesh of the card, the sharded streaming machine launches K3
 once per mesh position, bit-equal to the twin on the gathered series.  The
 episode-jump solvers (``impl="jump"`` / ``"hop"``) run K3 on the card and
 equal their lockstep loops on the card and on the CPU; past hop's record
-bound the lockstep hop runs on the card.  The
-build tests run anywhere: they stand in a fake ``nvcc``.
+bound the lockstep hop runs on the card.  K1 (one chunk and the chunked
+detection), K3 and ``events_from_mask`` captured in a CUDA graph replay
+their eager launches' bits.  The build tests run anywhere: they stand in a
+fake ``nvcc``.
 """
 
 import functools
@@ -716,3 +718,108 @@ def test_bandpower_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         a[pos] = value
         with pytest.raises(ValueError):
             tbk._launch(*a)
+
+
+# ---------------------------------------------------------------------------
+# CUDA-graph capture (torch_bench.py's chained timing): K1, K3 and the event
+# extraction run inside a captured graph, with no host sync and no copy from
+# the host, and a replay gives the eager launch's bits
+# ---------------------------------------------------------------------------
+def captured(fn):
+    """``fn()`` once eagerly on a side stream (libraries make their
+    workspaces outside a capture), then captured as a CUDA graph.  Returns
+    the graph and the outputs its replays write.  A host sync or a pageable
+    copy inside ``fn`` makes the capture raise."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+def assert_replay_equals_eager(fn, flat, launches, counter):
+    """A replay of ``fn`` captured equals an eager call bit for bit, each
+    replay re-running the kernels: the capture records ``launches`` launches
+    on ``counter()`` and a replay counts none."""
+    want = flat(fn())
+    before = counter()
+    graph, out = captured(fn)
+    assert counter() - before == launches + launches  # the side-stream call and the capture
+    for t in flat(out):  # a replay must write every output anew
+        t.zero_()
+    before = counter()
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert counter() == before
+    got = flat(out)
+    assert len(got) == len(want)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert_bits_equal(a, b, f"output {i}")
+
+
+ADAPTIVE_KW = dict(threshold_std_factor=4.0, window_blocks=600, freeze_blocks_before=15,
+                   freeze_blocks_after=100, fixed_threshold_blocks=50)
+
+
+@pytest.mark.cuda
+def test_k1_walk_route_captured_equals_eager(cuda):
+    """One chunk by the walk route (the headline hour, 18 000 blocks), its
+    carries from Python numbers made on the card: captured, replayed, equal
+    to the eager launch."""
+    d = torch.from_numpy(series(18000, 21)).to(cuda)
+    walk = tak.walk_launches
+    assert_replay_equals_eager(lambda: tak.adaptive_solver_fused(d, **ADAPTIVE_KW),
+                               lambda out: list(out), 1, lambda: tak.launches)
+    assert tak.walk_launches > walk
+
+
+@pytest.mark.cuda
+def test_k1_chunked_detection_captured_equals_eager(cuda, monkeypatch):
+    """The chunked fused detection (4 chunks, carries kept on the card)
+    with its events from ``events_from_mask`` (exact int64 means, the range
+    check on the card while capturing): captured, replayed, events and
+    thresholds equal to the eager call's."""
+    d = torch.from_numpy(series(40000, 3)).to(cuda)
+    monkeypatch.setattr(tak, "MAX_FUSED_BLOCKS", 10600)  # chunk = 10 000 blocks
+
+    def detect():
+        ev, thr = tad._detect_adaptive_fused(d, cap=512, **ADAPTIVE_KW)
+        return (*ev, thr)
+
+    assert_replay_equals_eager(detect, list, 4, lambda: tak.launches)
+    assert int(detect()[3]) > 100
+
+
+@pytest.mark.cuda
+def test_k3_captured_equals_eager(cuda):
+    """K3 at the stations' 3 000 x 64: captured, replayed, every state
+    leaf, event field and threshold equal to the eager launch's."""
+    on, pm = stream_inputs(64, 3000, 64, cuda)
+    st0 = tst.stream_init_batch(STREAM_CFG, 64, device=cuda)
+
+    def solve():
+        return tst.stream_scan_fused_batch(STREAM_CFG, st0, on, pm)
+
+    assert_replay_equals_eager(solve, lambda out: [*out[0], *out[1], out[2]], 1,
+                               lambda: tsk.launches)
+
+
+@pytest.mark.cuda
+def test_events_from_mask_captures_without_host_sync(cuda):
+    """``events_from_mask`` on the card (its means by exact int64 fixed
+    point): the range check, a host read in an eager call, stays on the card
+    while a graph captures, so the capture succeeds; replays equal the eager
+    call.  Eagerly an out-of-range row still raises ``ValueError``."""
+    from meteor_scatter_tpu_torch.models import events as tev
+
+    d = torch.from_numpy(series(18000, 5)).to(cuda)
+    above = d > 10.0
+    assert_replay_equals_eager(lambda: tev.events_from_mask(above, d, 512), list, 0,
+                               lambda: tak.launches + tsk.launches)
+    with pytest.raises(ValueError, match="2\\^61"):
+        tev.events_from_mask(above, torch.full_like(d, 2.0**60), 512)
