@@ -44,7 +44,7 @@ from meteor_scatter_tpu_torch.io.wavio import read_wav
 from meteor_scatter_tpu_torch.models.adaptive import detect_adaptive
 from meteor_scatter_tpu_torch.models.fixed import detect_fixed
 from meteor_scatter_tpu_torch.ops.bandpower import delta_power_db
-from meteor_scatter_tpu_torch.utils.timing import PhaseTimer
+from meteor_scatter_tpu_torch.utils.timing import PhaseTimer, span, spanned, wait
 
 @dataclass
 class AnalyzeResult:
@@ -133,6 +133,7 @@ def parse_gqrx_start_time(file_path: str) -> Optional[datetime.datetime]:
     return None
 
 
+@spanned("proc_wav_file")
 def proc_wav_file(
     file_path: str,
     block_duration_sec: float = 0.2,
@@ -191,31 +192,38 @@ def proc_wav_file(
         # the samples cross to the device in their file dtype (int16 is half
         # the bytes of float32) and are converted there; the conversion is
         # exact as on the host
-        x = torch.from_numpy(data).to(dev).to(torch.float32)
-        band_db, noise_db, delta = delta_power_db(
-            x, fs, n_fft_eff, block_size, freq_band, noise_band
-        )
-        del x
-        if flag_adaptive_threshold:
-            events, thresholds = detect_adaptive(
-                delta,
-                threshold_std_factor,
-                block_duration_sec,
-                threshold_estimation_window_sec,
-                threshold_freeze_before_detection_sec,
-                threshold_freeze_after_detection_sec,
-                threshold_fixed_init_duration_sec,
-                cap=max_events,
-                impl=impl,
+        with span("upload"):
+            x = torch.from_numpy(data).to(dev).to(torch.float32)
+        with span("band_power"):
+            band_db, noise_db, delta = delta_power_db(
+                x, fs, n_fft_eff, block_size, freq_band, noise_band
             )
-        else:
-            events, thr = detect_fixed(delta, threshold_std_factor, cap=max_events)
-            thresholds = thr.expand(delta.shape)
+        del x
+        with span("detect"):
+            if flag_adaptive_threshold:
+                events, thresholds = detect_adaptive(
+                    delta,
+                    threshold_std_factor,
+                    block_duration_sec,
+                    threshold_estimation_window_sec,
+                    threshold_freeze_before_detection_sec,
+                    threshold_freeze_after_detection_sec,
+                    threshold_fixed_init_duration_sec,
+                    cap=max_events,
+                    impl=impl,
+                )
+            else:
+                events, thr = detect_fixed(delta, threshold_std_factor, cap=max_events)
+                thresholds = thr.expand(delta.shape)
         if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+            with wait("detect_phase"):
+                torch.cuda.synchronize(dev)
 
-    dets = events_to_detections(events, block_duration_sec, wav_start_date_time)
-    if bool(events.overflow):
+    with span("events_to_host"):
+        dets = events_to_detections(events, block_duration_sec, wav_start_date_time)
+        with wait("overflow"):
+            overflow = bool(events.overflow)
+    if overflow:
         print(f"WARNING: event buffer overflow — more than {max_events} events, extras dropped")
 
     if verbose:
@@ -227,11 +235,13 @@ def proc_wav_file(
             )
 
     if out_audacity_lbl_file:
-        write_audacity_labels(out_audacity_lbl_file, dets)
-        print("Wrote Items", len(dets), "to Audacity LBL file")
+        with span("write_labels"):
+            write_audacity_labels(out_audacity_lbl_file, dets)
+            print("Wrote Items", len(dets), "to Audacity LBL file")
     if out_csv_file:
-        write_event_csv(out_csv_file, dets)
-        print("Wrote Items", len(dets), "to CSV file:", out_csv_file)
+        with span("write_csv"):
+            write_event_csv(out_csv_file, dets)
+            print("Wrote Items", len(dets), "to CSV file:", out_csv_file)
     if outfile_path:
         with timer.phase("spec_export"):
             wav_np = np.asarray(data, dtype=np.float32)
@@ -240,12 +250,16 @@ def proc_wav_file(
                     outfile_path, det, wav_np, fs, n_fft=1024, freq_band=freq_band, device=dev
                 )
 
+    with span("series_to_host"), wait("series"):
+        series = [v.cpu().numpy() for v in (band_db, noise_db, delta, thresholds)]
+    with span("free_samples"):  # an hour's buffer goes back to the OS in milliseconds
+        del data
     return AnalyzeResult(
         detections=dets,
-        band_power=band_db.cpu().numpy(),
-        noise_power=noise_db.cpu().numpy(),
-        delta_power=delta.cpu().numpy(),
-        thresholds=thresholds.cpu().numpy(),
+        band_power=series[0],
+        noise_power=series[1],
+        delta_power=series[2],
+        thresholds=series[3],
         sample_rate=fs,
         block_duration_sec=block_duration_sec,
         timer=timer,

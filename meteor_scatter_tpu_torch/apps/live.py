@@ -45,6 +45,7 @@ from meteor_scatter_tpu_torch.models.streaming import (
     stream_process,
 )
 from meteor_scatter_tpu_torch.ops.welch import welch_freqs
+from meteor_scatter_tpu_torch.utils.timing import span, spanned, wait
 
 EVENT_FIELDS = StreamEvents._fields[:7]
 
@@ -95,6 +96,7 @@ class LiveSession:
         self._pending_export: List[dict] = []
         self._blocks_fed = 0
 
+    @spanned("feed")
     def feed(self, samples: np.ndarray) -> List[dict]:
         """Process a chunk (any whole number of blocks).  Returns events
         completed within this chunk."""
@@ -102,7 +104,8 @@ class LiveSession:
         if n_blocks == 0:
             return []
         usable = n_blocks * self.block_samples
-        x = torch.as_tensor(np.asarray(samples[:usable], dtype=np.float32)).to(self.device)
+        with span("upload"):
+            x = torch.as_tensor(np.asarray(samples[:usable], dtype=np.float32)).to(self.device)
         self.block_offset_before_feed = self._blocks_fed
         self.state, events, diags = stream_process(
             self.cfg, self.state, x, self.fs,
@@ -113,29 +116,38 @@ class LiveSession:
 
         # waterfall ring, only for the export (it is all it serves here)
         if self.spec.output_dir:
-            psd_db = diags["psd_db"].cpu().numpy()
-            for b in range(n_blocks):
-                self.wf_db.append(psd_db[b])
-                self.wf_times.append((self._blocks_fed + b + 1) * self.cfg.proc_block_sec)
-            self.wf_db = self.wf_db[-self.wf_win :]
-            self.wf_times = self.wf_times[-self.wf_win :]
+            with span("spec_ring"):
+                with wait("psd"):
+                    psd_db = diags["psd_db"].cpu().numpy()
+                for b in range(n_blocks):
+                    self.wf_db.append(psd_db[b])
+                    self.wf_times.append((self._blocks_fed + b + 1) * self.cfg.proc_block_sec)
+                self.wf_db = self.wf_db[-self.wf_win :]
+                self.wf_times = self.wf_times[-self.wf_win :]
         self._blocks_fed += n_blocks
 
-        cnt = int(events.count)
-        host = {f: getattr(events, f)[:cnt].cpu().numpy() for f in EVENT_FIELDS}
-        new = [{f: float(host[f][i]) for f in EVENT_FIELDS} for i in range(cnt)]
-        self.events.extend(new)
-        if self.spec.output_dir:
-            self._pending_export.extend(new)
-        if bool(events.overflow):
+        with span("events_to_host"):
+            with wait("event_count"):
+                cnt = int(events.count)
+            with wait("event_fields"):
+                host = {f: getattr(events, f)[:cnt].cpu().numpy() for f in EVENT_FIELDS}
+            new = [{f: float(host[f][i]) for f in EVENT_FIELDS} for i in range(cnt)]
+            self.events.extend(new)
+            if self.spec.output_dir:
+                self._pending_export.extend(new)
+        with wait("overflow"):
+            overflow = bool(events.overflow)
+        if overflow:
             print("WARNING: per-chunk event buffer overflow")
-        self._try_exports()
+        with span("exports"):
+            self._try_exports()
         return new
 
     def _try_exports(self) -> None:
         if not self._pending_export:
             return
-        psd_mean = float(self.state.psd_db_mean_from_init)
+        with wait("psd_mean"):
+            psd_mean = float(self.state.psd_db_mean_from_init)
         still = []
         for ev in self._pending_export:
             path = export_waterfall_window(

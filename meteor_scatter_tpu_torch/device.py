@@ -11,7 +11,10 @@ from __future__ import annotations
 
 from typing import Union
 
+import numpy as np
 import torch
+
+from meteor_scatter_tpu_torch.utils.timing import wait
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -34,3 +37,12 @@ def resolve_device(device: DeviceLike) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {str(dev)!r} (expected 'cpu' or 'cuda')")
     return dev
+
+
+def constant_on(a: np.ndarray, device: DeviceLike) -> torch.Tensor:
+    """The host constant ``a`` as a tensor on ``device``.  To a GPU it is a
+    pageable copy, which waits for the device's queue: the profiler sees it
+    as the wait span ``constant_upload``."""
+    t = torch.from_numpy(a)
+    with wait("constant_upload"):
+        return t.to(device)

@@ -20,6 +20,7 @@ from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
 from meteor_scatter_tpu_torch.models.events import Events
+from meteor_scatter_tpu_torch.utils.timing import wait
 
 
 @dataclass
@@ -43,10 +44,12 @@ def events_to_detections(
     """Convert an event buffer (on any device) into host records, applying
     the block→seconds mapping of `main.py:425-426,503-505`."""
     out = []
-    count = int(events.count)
-    start = events.start[:count].cpu().numpy()
-    stop = events.stop[:count].cpu().numpy()
-    db = events.db_mean[:count].cpu().numpy()
+    with wait("event_count"):
+        count = int(events.count)
+    with wait("event_fields"):
+        start = events.start[:count].cpu().numpy()
+        stop = events.stop[:count].cpu().numpy()
+        db = events.db_mean[:count].cpu().numpy()
     for i in range(count):
         t0 = (int(start[i]) + block_offset) * block_duration_sec
         t1 = (int(stop[i]) + block_offset) * block_duration_sec

@@ -40,6 +40,7 @@ from meteor_scatter_tpu_torch.models.events import (
     to_fixed_point,
 )
 from meteor_scatter_tpu_torch.ops.kernels import adaptive_kernel as ak
+from meteor_scatter_tpu_torch.utils.timing import wait
 
 
 def adaptive_thresholds(
@@ -285,11 +286,13 @@ def _fixpoint(
         return torch.where(in_fixed, fixed_thr, frozen).to(dtype)
 
     above = delta > thresholds_from(torch.zeros(delta.shape, dtype=torch.bool, device=delta.device))
-    changed = bool(above.any())
+    with wait("fixpoint_round"):
+        changed = bool(above.any())
     rounds = 1
     while changed and rounds < max_rounds:
         new = delta > thresholds_from(above)
-        changed = bool((new != above).any())
+        with wait("fixpoint_round"):
+            changed = bool((new != above).any())
         above = new
         rounds += 1
     thr = thresholds_from(above)

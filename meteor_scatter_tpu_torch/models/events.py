@@ -22,6 +22,8 @@ from typing import NamedTuple, Tuple, Union
 
 import torch
 
+from meteor_scatter_tpu_torch.utils.timing import wait
+
 I32 = torch.int32
 
 
@@ -105,8 +107,11 @@ def to_fixed_point(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         # the card checks the range at every replay, and a failure is a
         # device-side assert that the next synchronise reports
         torch._assert_async(~out_of_range, _FIXED_POINT_RANGE)
-    elif bool(out_of_range):
-        raise ValueError(_FIXED_POINT_RANGE)
+    else:
+        with wait("fixed_point_range"):
+            out_of_range = bool(out_of_range)
+        if out_of_range:
+            raise ValueError(_FIXED_POINT_RANGE)
     scale = ((k + 1023) << 52).view(torch.float64)  # 2^k built from its bits: exact
     return torch.round(x * scale).to(torch.int64), scale
 

@@ -62,6 +62,7 @@ from meteor_scatter_tpu_torch.ops.welch import (
     welch_freqs,
     welch_psd,
 )
+from meteor_scatter_tpu_torch.utils.timing import span, spanned, wait
 
 # State machine encoding
 INIT, DETECT, TRACK = 0, 1, 2
@@ -409,8 +410,9 @@ def _headless_projection(fs: float, nfft: int, nperseg: int, bands, block: int):
 
 @functools.lru_cache(maxsize=8)
 def _headless_projection_on(fs: float, nfft: int, nperseg: int, bands, block: int, device: str):
-    P, slices, nseg = _headless_projection(fs, nfft, nperseg, bands, block)
-    return torch.from_numpy(P).to(device), slices, nseg
+    with span("bins_projection"):  # a cache miss: the host eigh (once a process), the upload
+        P, slices, nseg = _headless_projection(fs, nfft, nperseg, bands, block)
+        return torch.from_numpy(P).to(device), slices, nseg
 
 
 def stream_front_headless(cfg: DetectionConfig, samples: torch.Tensor, fs: float):
@@ -639,7 +641,9 @@ def _lockstep(step: Callable, lanes: _Lanes, n: int) -> _Lanes:
     global iterations, syncs
     while True:
         syncs += 1
-        if not bool((lanes.k < n).any()):
+        with wait("fixpoint_round"):
+            undecided = bool((lanes.k < n).any())
+        if not undecided:
             return lanes
         for _ in range(SYNC_EVERY):
             lanes = step(lanes)
@@ -999,6 +1003,7 @@ def resolve_stream_auto(
     return front, impl
 
 
+@spanned("stream_process")
 def stream_process(
     cfg: DetectionConfig,
     state: StreamState,
@@ -1046,16 +1051,18 @@ def stream_process(
             diags["thr_degraded"] = torch.zeros((), dtype=torch.bool, device=samples.device)
         return state, _empty_events(scfg.cap, torch.float32, samples.device), diags
 
-    if front == "bins":
-        over_noise, psd_db_mean, front_diags = stream_front_headless(cfg, samples, fs)
-    else:
-        over_noise, psd_db_mean, front_diags = stream_front(cfg, samples, fs)
+    with span("front"):
+        if front == "bins":
+            over_noise, psd_db_mean, front_diags = stream_front_headless(cfg, samples, fs)
+        else:
+            over_noise, psd_db_mean, front_diags = stream_front(cfg, samples, fs)
     extra = {}
-    if impl == "hop":
-        state, events, thresholds, extra = stream_scan_jump_batch(
-            scfg, state, over_noise, psd_db_mean, with_diag=True)
-    else:
-        solve = {"scan": stream_scan, "jump": stream_scan_jump, "fused": stream_scan_fused}[impl]
-        state, events, thresholds = solve(scfg, state, over_noise, psd_db_mean)
+    with span("solve"):
+        if impl == "hop":
+            state, events, thresholds, extra = stream_scan_jump_batch(
+                scfg, state, over_noise, psd_db_mean, with_diag=True)
+        else:
+            solve = {"scan": stream_scan, "jump": stream_scan_jump, "fused": stream_scan_fused}[impl]
+            state, events, thresholds = solve(scfg, state, over_noise, psd_db_mean)
     diags = {"over_noise": over_noise, "threshold": thresholds, **extra, **front_diags}
     return state, events, diags

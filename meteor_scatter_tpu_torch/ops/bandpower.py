@@ -23,6 +23,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from meteor_scatter_tpu_torch.device import constant_on
 from meteor_scatter_tpu_torch.ops.framing import frame_signal
 from meteor_scatter_tpu_torch.ops.window import hann_symmetric
 
@@ -109,6 +110,6 @@ def delta_power_db(
     """
     M, slices = band_projection_matrix(fs, n_fft, block_size, [freq_band, noise_band])
     frames = frame_signal(x.to(torch.float32), block_size, block_size)
-    proj = torch.from_numpy(M).to(x.device)
+    proj = constant_on(M, x.device)
     band_db, noise_db = band_power_db(frames, proj, slices, power_floor)
     return band_db, noise_db, band_db - noise_db

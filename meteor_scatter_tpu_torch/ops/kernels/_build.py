@@ -23,6 +23,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict
 
+from meteor_scatter_tpu_torch.utils.timing import span
+
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
@@ -96,7 +98,8 @@ def build(name: str) -> Path:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = _command(name, tmp)
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        with span(f"build.{name}"):
+            proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
                 f"{os.path.basename(cmd[0])} failed building {name} (exit {proc.returncode}):\n"
@@ -113,7 +116,9 @@ def load(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is not None:
         return lib
-    lib = ctypes.CDLL(str(build(name)))
+    path = build(name)
+    with span(f"load.{name}"):
+        lib = ctypes.CDLL(str(path))
     _libs[name] = lib
     return lib
 

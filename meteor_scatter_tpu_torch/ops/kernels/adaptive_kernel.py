@@ -40,6 +40,7 @@ from typing import Tuple, Union
 import torch
 
 from meteor_scatter_tpu_torch.ops.kernels import _build
+from meteor_scatter_tpu_torch.utils.timing import wait
 
 MAX_FUSED_BLOCKS = 131072
 SEGMENT = 1024  # blocks of the series per CTA of the walk route
@@ -129,11 +130,13 @@ def adaptive_solver_plain(
         return torch.where(in_fixed, fixed_thr, frozen)
 
     above = valid & (d > thresholds_from(torch.zeros_like(valid)))
-    changed = bool(above.any())
+    with wait("fixpoint_round"):
+        changed = bool(above.any())
     rounds = 1
     while changed and rounds < max_rounds:
         new = valid & (d > thresholds_from(above))
-        changed = bool((new != above).any())
+        with wait("fixpoint_round"):
+            changed = bool((new != above).any())
         above = new
         rounds += 1
     thr = thresholds_from(above)

@@ -30,6 +30,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from meteor_scatter_tpu_torch.device import constant_on
 from meteor_scatter_tpu_torch.ops.framing import frame_signal, num_frames
 from meteor_scatter_tpu_torch.ops.window import hann_periodic
 
@@ -63,7 +64,7 @@ def welch_psd(
         raise ValueError("nfft must be >= nperseg")
     hop = nperseg - noverlap
 
-    win = torch.from_numpy(hann_periodic(nperseg, dtype=np.float32)).to(x.device)
+    win = constant_on(hann_periodic(nperseg, dtype=np.float32), x.device)
     seg = frame_signal(x.to(torch.float32), nperseg, hop)
     if detrend == "constant":
         seg = seg - seg.mean(dim=-1, keepdim=True)
@@ -75,7 +76,7 @@ def welch_psd(
     scale[0] = 1.0
     if nfft % 2 == 0:
         scale[-1] = 1.0
-    p = p * torch.from_numpy(scale).to(x.device)
+    p = p * constant_on(scale, x.device)
     return p.mean(dim=-2)
 
 
@@ -259,5 +260,5 @@ def band_sum_db(
     ``torch.log10(0) = -inf`` reproduces that (an empty band sums to 0).
     """
     idx = np.nonzero((freqs >= band[0]) & (freqs <= band[1]))[0]
-    s = psd[..., torch.from_numpy(idx).to(psd.device)].sum(dim=-1) + floor
+    s = psd[..., constant_on(idx, psd.device)].sum(dim=-1) + floor
     return 10.0 * torch.log10(s)
