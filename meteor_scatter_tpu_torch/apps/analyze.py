@@ -40,6 +40,7 @@ from meteor_scatter_tpu_torch.io.events_csv import (
     write_event_csv,
 )
 from meteor_scatter_tpu_torch.io.spec_export import export_detection_spec
+from meteor_scatter_tpu_torch.io.ingest import read_wav_to_device
 from meteor_scatter_tpu_torch.io.wavio import read_wav
 from meteor_scatter_tpu_torch.models.adaptive import detect_adaptive
 from meteor_scatter_tpu_torch.models.fixed import detect_fixed
@@ -133,6 +134,18 @@ def parse_gqrx_start_time(file_path: str) -> Optional[datetime.datetime]:
     return None
 
 
+def _frame_range(
+    fs: int, n: int, start_sec: Optional[float], end_sec: Optional[float]
+) -> Tuple[Optional[int], Optional[int]]:
+    """The frames ``[s, e)`` of the reference's ``wav_start_sec`` /
+    ``wav_end_sec`` cut of ``n`` frames at ``fs`` (None, None: no cut)."""
+    if start_sec is None and end_sec is None:
+        return None, None
+    s = int((start_sec or 0) * fs)
+    e = int((end_sec if end_sec is not None else n / fs) * fs)
+    return s, e
+
+
 @spanned("proc_wav_file")
 def proc_wav_file(
     file_path: str,
@@ -170,15 +183,22 @@ def proc_wav_file(
     dev = resolve_device(device)
     timer = PhaseTimer(log=False)
 
+    # on a GPU the samples of a regular file go from it to the card through
+    # the pinned ring (io/ingest.py), unless the spectrogram export needs them
+    # on the host; a pipe is read by read_wav, which reads a stream
+    on_card = dev.type == "cuda" and outfile_path is None and os.path.isfile(file_path)
     with timer.phase("read_wav"):
-        fs, data = read_wav(file_path, mono=True)
+        if on_card:
+            with span("ingest_pinned"):
+                fs, data = read_wav_to_device(
+                    file_path, dev, True,
+                    lambda fs, n: _frame_range(fs, n, wav_start_sec, wav_end_sec),
+                )
+        else:
+            fs, data = read_wav(file_path, mono=True)
+            data = data[slice(*_frame_range(fs, len(data), wav_start_sec, wav_end_sec))]
     if expected_sample_rate is not None and fs != expected_sample_rate:
         raise ValueError(f"Sample rate must be {expected_sample_rate} Hz, got {fs}")
-
-    if wav_start_sec is not None or wav_end_sec is not None:
-        s = int((wav_start_sec or 0) * fs)
-        e = int((wav_end_sec if wav_end_sec is not None else len(data) / fs) * fs)
-        data = data[s:e]
 
     n_fft_eff = n_fft * 2  # reference doubles the user n_fft (main.py:353)
     block_size = int(fs * block_duration_sec)
@@ -193,7 +213,11 @@ def proc_wav_file(
         # the bytes of float32) and are converted there; the conversion is
         # exact as on the host
         with span("upload"):
-            x = torch.from_numpy(data).to(dev).to(torch.float32)
+            if on_card:
+                x = data.to(torch.float32)
+                del data
+            else:
+                x = torch.from_numpy(data).to(dev).to(torch.float32)
         with span("band_power"):
             band_db, noise_db, delta = delta_power_db(
                 x, fs, n_fft_eff, block_size, freq_band, noise_band
@@ -252,8 +276,9 @@ def proc_wav_file(
 
     with span("series_to_host"), wait("series"):
         series = [v.cpu().numpy() for v in (band_db, noise_db, delta, thresholds)]
-    with span("free_samples"):  # an hour's buffer goes back to the OS in milliseconds
-        del data
+    if not on_card:
+        with span("free_samples"):  # an hour's buffer goes back to the OS in milliseconds
+            del data
     return AnalyzeResult(
         detections=dets,
         band_power=series[0],

@@ -19,6 +19,7 @@ import struct
 import subprocess
 import sys
 import textwrap
+import threading
 
 import numpy as np
 import pytest
@@ -28,6 +29,8 @@ from meteor_scatter_tpu.apps import analyze as jan
 from meteor_scatter_tpu.io import wavio as jwav
 from meteor_scatter_tpu_torch.apps import analyze as tan
 from meteor_scatter_tpu_torch.io import wavio as twav
+from meteor_scatter_tpu_torch.io.ingest import read_wav_to_device
+from tests import test_torch_wav_ingest as wav_kinds
 
 DB_ATOL = 1e-4
 FS = 6000
@@ -148,6 +151,60 @@ def test_read_wav_matches_jax(tmp_path, kind):
         assert fs_t == fs_j == 4000 and x_t.dtype == x_j.dtype
         np.testing.assert_array_equal(x_t, x_j)
         assert torch.from_numpy(x_t).numel() == x_t.size  # writable: no copy, no warning
+
+
+@pytest.mark.parametrize("mono", [False, True])
+@pytest.mark.parametrize("kind", wav_kinds.KINDS + wav_kinds.FAULTS)
+def test_read_wav_kinds_match_jax(tmp_path, kind, mono):
+    """The file kinds of the card ingest's tests (sample types, channels,
+    chunk layouts, truncation, malformed files): the port's ``read_wav``
+    and the ingest's piece loop (7-byte pieces on the CPU) give the JAX
+    ``read_wav``'s samples and dtype, or its error."""
+    p = str(tmp_path / f"{kind}.wav")
+    wav_kinds.make(kind, p)
+    want = wav_kinds.outcome(lambda: jwav.read_wav(p, mono=mono))
+    wav_kinds.assert_same_outcome(wav_kinds.outcome(lambda: twav.read_wav(p, mono=mono)), want)
+    ring = wav_kinds.cpu_ring(7)
+    wav_kinds.assert_same_outcome(
+        wav_kinds.outcome(lambda: read_wav_to_device(p, torch.device("cpu"), mono, ring=ring)),
+        want)
+
+
+def read_through_fifo(fifo, payload, reader):
+    """``reader(fifo)``'s outcome while a thread writes ``payload`` into the
+    named pipe ``fifo``."""
+    def feed():
+        try:
+            with open(fifo, "wb") as fh:
+                fh.write(payload)
+        except BrokenPipeError:  # the reader stopped early, on an error
+            pass
+
+    t = threading.Thread(target=feed, daemon=True)
+    t.start()
+    try:
+        return wav_kinds.outcome(lambda: reader(fifo))
+    finally:
+        t.join(10)
+        assert not t.is_alive()
+
+
+@pytest.mark.parametrize("kind", wav_kinds.KINDS + wav_kinds.FAULTS)
+def test_read_wav_from_a_pipe_matches_jax(tmp_path, kind):
+    """``read_wav`` reads a stream as the JAX one does: the same samples
+    through a named pipe, or the same error where the walk has to seek
+    (a chunk it skips, an odd size's pad byte)."""
+    p = str(tmp_path / f"{kind}.wav")
+    wav_kinds.make(kind, p)
+    with open(p, "rb") as fh:
+        payload = fh.read()
+    fifo = str(tmp_path / "pipe.wav")
+    os.mkfifo(fifo)
+    want = read_through_fifo(fifo, payload, lambda f: jwav.read_wav(f, mono=True))
+    got = read_through_fifo(fifo, payload, lambda f: twav.read_wav(f, mono=True))
+    wav_kinds.assert_same_outcome(got, want)
+    if kind in wav_kinds.KINDS and kind not in ("uint8", "list_chunk"):  # no seek needed
+        assert want[0] == "ok"
 
 
 @pytest.mark.parametrize(
