@@ -26,21 +26,21 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from meteor_scatter_tpu_torch.device import DeviceLike, resolve_device
+from meteor_scatter_tpu_torch.device import DeviceLike, constant_on, resolve_device
 from meteor_scatter_tpu_torch.models.adaptive import adaptive_thresholds_parallel
 from meteor_scatter_tpu_torch.models.events import Events, events_from_mask
 from meteor_scatter_tpu_torch.ops.bandpower import band_power_db, band_projection_matrix
 from meteor_scatter_tpu_torch.ops.fir import (
     channel_bank_plan,
-    channelize,
     channelize_frames,
-    channelize_iq,
     channelize_iq_frames,
+    frame_capture,
     frame_capture_host,
     resample_poly,
 )
 from meteor_scatter_tpu_torch.ops.framing import frame_signal
 from meteor_scatter_tpu_torch.parallel.sharded import sharded_delta_power, sharded_detect_adaptive
+from meteor_scatter_tpu_torch.utils.timing import span, spanned
 
 TONE_FREQ = 1003.0  # audio-domain beacon tone (main.py:827)
 
@@ -62,31 +62,27 @@ def _bank(x, x_im, fs, centers, channel_bandwidth, decim, numtaps, device) -> to
     """The channelizer stage of :func:`iq_frontend`: (C, S / decim) real
     channel audio.  A numpy capture is framed on the host (a free copy) and
     uploaded framed to ``device``; a tensor capture is framed on its own
-    device.  Both give the same bits."""
-    if isinstance(x, np.ndarray) and (x_im is None or isinstance(x_im, np.ndarray)):
-        dev = resolve_device(device)
-        plan, tables = channel_bank_plan(
-            np.shape(x)[-1], fs, centers,
-            bandwidth=channel_bandwidth, decim=decim, numtaps=numtaps, device=dev,
-        )
-        if x_im is None:
-            f = torch.from_numpy(frame_capture_host(x, plan)).to(dev)
-            re, _ = channelize_frames(f, tables, plan)
-            return 2.0 * re
-        f = torch.from_numpy(frame_capture_host(np.stack([x, x_im]), plan)).to(dev)
-        re, _ = channelize_iq_frames(f, tables, plan)
-        return re
-    if x_im is None:
-        re, _ = channelize(
-            x, fs, centers, bandwidth=channel_bandwidth, decim=decim, numtaps=numtaps,
-        )
-        return 2.0 * re
-    re, _ = channelize_iq(
-        x, x_im, fs, centers, bandwidth=channel_bandwidth, decim=decim, numtaps=numtaps,
+    device.  Both give the same bits, those of ``channelize`` /
+    ``channelize_iq`` on the capture."""
+    host = isinstance(x, np.ndarray) and (x_im is None or isinstance(x_im, np.ndarray))
+    dev = resolve_device(device) if host else x.device
+    plan, tables = channel_bank_plan(
+        x.shape[-1], fs, centers, bandwidth=channel_bandwidth, decim=decim, numtaps=numtaps,
+        device=dev,
     )
-    return re
+    with span("channelize"):
+        if x_im is not None:
+            x = np.stack([x, x_im]) if host else torch.stack([x, x_im])
+        if host:
+            f = torch.from_numpy(frame_capture_host(x, plan)).to(dev)
+        else:
+            f = frame_capture(x, plan)
+        if x_im is None:
+            return 2.0 * channelize_frames(f, tables, plan)[0]
+        return channelize_iq_frames(f, tables, plan)[0]
 
 
+@spanned("iq_frontend")
 def iq_frontend(
     x,  # (S,) real wideband capture, or I of a complex capture when x_im given
     fs: float,
@@ -120,9 +116,11 @@ def iq_frontend(
     centers = np.asarray(station_freqs, dtype=np.float64) - tone_freq
     decim, up, down = _stages(int(round(fs)), audio_rate, channel_bandwidth)
     audio = _bank(x, x_im, fs, centers, channel_bandwidth, decim, numtaps, device)
-    return resample_poly(audio, up, down)
+    with span("resample"):
+        return resample_poly(audio, up, down)
 
 
+@spanned("detect_channels")
 def detect_channels(
     audio: torch.Tensor,  # (C, S) at audio_rate
     audio_rate: int = 6000,
@@ -158,15 +156,20 @@ def detect_channels(
         fixed_threshold_blocks=int(threshold_fixed_init_sec / block_duration_sec),
     )
     if mesh is not None:
-        _, _, delta = sharded_delta_power(audio, mesh, audio_rate, n_fft, block, fb, nb)
-        _, above = sharded_detect_adaptive(delta, mesh, **kw)
+        with span("band_power"):
+            _, _, delta = sharded_delta_power(audio, mesh, audio_rate, n_fft, block, fb, nb)
+        with span("detect"):
+            _, above = sharded_detect_adaptive(delta, mesh, **kw)
     else:
-        M, slices = band_projection_matrix(audio_rate, n_fft, block, [fb, nb])
-        frames = frame_signal(audio.to(torch.float32), block, block)
-        band, noise = band_power_db(frames, torch.from_numpy(M).to(audio.device), slices)
-        delta = band - noise
-        _, above = adaptive_thresholds_parallel(delta, **kw)
-    return events_from_mask(above, delta, cap=cap), delta
+        with span("band_power"):
+            M, slices = band_projection_matrix(audio_rate, n_fft, block, [fb, nb])
+            frames = frame_signal(audio.to(torch.float32), block, block)
+            band, noise = band_power_db(frames, constant_on(M, audio.device), slices)
+            delta = band - noise
+        with span("detect"):
+            _, above = adaptive_thresholds_parallel(delta, **kw)
+    with span("events"):
+        return events_from_mask(above, delta, cap=cap), delta
 
 
 def _burst_span(t: np.ndarray, t0: float, dur: float) -> slice:

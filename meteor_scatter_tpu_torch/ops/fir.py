@@ -9,7 +9,8 @@ polyphase-decimated to the analysis rate on the device.
   ``firwin_bandpass``, the polyphase tap split, the DDC bank's tap and
   mixer-phase tables (exact int64 phase arithmetic mod fs, numpy's
   non-negative ``%`` for negative centers), and the host-side framing of a
-  capture.
+  capture.  The bank's tables are built once per capture length, rates
+  and channels and kept on their device (:func:`channel_bank_plan`).
 * Device half (torch): ``fir_filter`` / ``resample_poly`` as
   ``F.conv1d`` (a correlation, so the taps are passed reversed, as the
   reference passes them to ``conv_general_dilated``), ``polyphase_decimate``
@@ -24,6 +25,7 @@ reference.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
@@ -32,6 +34,9 @@ import torch
 import torch.nn.functional as F
 
 from meteor_scatter_tpu_torch.device import DeviceLike, resolve_device
+from meteor_scatter_tpu_torch.utils.timing import span
+
+PLANS_KEPT = 2  # bank plans kept per process; 8 channels of a 600 s, 2 MS/s capture hold 384 MB
 
 
 def _hamming(m: int) -> np.ndarray:
@@ -195,7 +200,7 @@ def _bank_tables(
     m: int,
     pl: int,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Host-side tables of the one-product DDC bank (see :func:`_channel_bank`),
+    """Host-side tables of the one-product DDC bank (see :func:`channelize`),
     as numpy float32: the (q, 2·C·A) polyphase tap matrix with the
     intra-frame mixer folded in by angle addition, and the (C, m)
     output-rate row phases.  Row phases are exact integer arithmetic mod fs
@@ -281,18 +286,30 @@ def channel_bank_plan(
     Returns ``(plan, (hh, cr, sr))``: ``plan`` holds the framing geometry
     (n / pl / n_out / a_cols / m / q / c_n for an input of length ``n``) and
     the tables are float32 tensors on ``device`` sized ``(q, 2·C·A)`` /
-    ``(C, m)`` / ``(C, m)``."""
+    ``(C, m)`` / ``(C, m)``.
+
+    The last :data:`PLANS_KEPT` plans are kept, keyed by every argument: a
+    call with a key seen before returns the same tables, read-only (no
+    caller writes into them), without the host's trigonometry or the
+    upload.  A miss builds inside the span ``bank_plan``."""
     dev = resolve_device(device)
-    fs_i, freqs = _validated_int_rate_and_freqs(fs, center_freqs)
-    h = firwin_lowpass(numtaps, bandwidth / 2.0, fs)
-    q, c_n = int(decim), len(freqs)
-    pl, n_out, a_cols, _, m = _polyphase_plan(n, h, q)
-    tables = _bank_tables(fs_i, freqs, h, q, a_cols, m, pl)
-    plan = {
-        "n": int(n), "pl": int(pl), "n_out": int(n_out),
-        "a_cols": int(a_cols), "m": int(m), "q": q, "c_n": c_n,
-    }
-    return plan, tuple(torch.from_numpy(t).to(dev) for t in tables)
+    _, freqs = _validated_int_rate_and_freqs(fs, center_freqs)
+    plan, tables = _bank_plan_on(int(n), float(fs), tuple(freqs), float(bandwidth), int(decim),
+                                 int(numtaps), dev)
+    return dict(plan), tables
+
+
+@functools.lru_cache(maxsize=PLANS_KEPT)
+def _bank_plan_on(n: int, fs: float, freqs: tuple, bandwidth: float, decim: int, numtaps: int,
+                  dev: torch.device):
+    with span("bank_plan"):  # a miss: the tables on the host, then their upload
+        h = firwin_lowpass(numtaps, bandwidth / 2.0, fs)
+        q, c_n = decim, len(freqs)
+        pl, n_out, a_cols, _, m = _polyphase_plan(n, h, q)
+        tables = _bank_tables(int(round(fs)), list(freqs), h, q, a_cols, m, pl)
+        plan = {"n": n, "pl": int(pl), "n_out": int(n_out), "a_cols": int(a_cols), "m": int(m),
+                "q": q, "c_n": c_n}
+        return plan, tuple(torch.from_numpy(t).to(dev) for t in tables)
 
 
 def frame_capture_host(x_np: np.ndarray, plan: dict) -> np.ndarray:
@@ -313,6 +330,14 @@ def frame_capture_host(x_np: np.ndarray, plan: dict) -> np.ndarray:
     pad = [(0, 0)] * (x_np.ndim - 1) + [(pl, max(need - n - pl, 0))]
     xp = np.pad(x_np, pad)
     return xp[..., :need].reshape(x_np.shape[:-1] + (m, q))
+
+
+def frame_capture(x: torch.Tensor, plan: dict) -> torch.Tensor:
+    """:func:`frame_capture_host` on ``x``'s device: the ``(..., m, q)``
+    frames of a flat capture, one padded float32 copy and a view."""
+    if x.shape[-1] != plan["n"]:
+        raise ValueError(f"capture length {x.shape[-1]} does not match the plan's n={plan['n']}")
+    return _polyphase_frames(x, plan["pl"], plan["m"], plan["q"])
 
 
 def frame_capture_sharded_host(x_np: np.ndarray, plan: dict, n_shards: int) -> np.ndarray:
@@ -349,40 +374,6 @@ def channelize_iq_frames(f: torch.Tensor, tables, plan: dict) -> Tuple[torch.Ten
     return dc[0] + ds[1], dc[1] - ds[0]
 
 
-def _channel_bank(
-    x: torch.Tensor,
-    fs: float,
-    center_freqs: np.ndarray,
-    bandwidth: float,
-    decim: int,
-    numtaps: int,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Shared DDC machinery behind :func:`channelize` / :func:`channelize_iq`:
-    for every channel c returns the decimated quadrature projections
-
-        dc = decim((x · cos φ_c) * h),   ds = decim((x · sin φ_c) * h)
-
-    with φ_c(s) = 2π·fc·s/fs at input-sample index s, each output
-    ``x.shape[:-1] + (n_channels, n_out)`` float32, on ``x``'s device.
-
-    Nothing runs at the input rate but one product: splitting the input
-    index ``s = ri·q + b`` (ri = output-rate frame row, b = intra-frame
-    offset) splits the mixer phase by angle addition, so the intra-frame
-    factor ``cos/sin(2π·fc·b/fs)`` folds into the polyphase tap matrix per
-    channel on the host, and the whole bank becomes
-
-        frames(x) @ [Hcos | Hsin]        # (m, q) @ (q, 2·C·A)
-        y = rotate by per-row phase      # output-rate cos/sin, O(C·m)
-
-    No (C, n) mixer tables or mixed copies of x are made; x is read once.
-    """
-    plan, tables = channel_bank_plan(
-        x.shape[-1], fs, center_freqs, bandwidth, decim, numtaps, device=x.device
-    )
-    f = _polyphase_frames(x, plan["pl"], plan["m"], plan["q"])
-    return _bank_apply(f, *tables, plan["c_n"], plan["a_cols"], plan["n_out"])
-
-
 def channelize(
     x: torch.Tensor,
     fs: float,
@@ -394,10 +385,29 @@ def channelize(
     """Multi-channel DDC bank over a *real* capture: mix each beacon channel
     to baseband (``x·e^{-jφ_c}``), lowpass, and decimate.  Returns the
     complex baseband as a real pair ``(re, im)``, each (n_channels, n_out)
-    float32 on ``x``'s device.  See :func:`_channel_bank`.
+    float32 on ``x``'s device: ``(dc, -ds)`` for the decimated quadrature
+    projections
+
+        dc = decim((x · cos φ_c) * h),   ds = decim((x · sin φ_c) * h)
+
+    with φ_c(s) = 2π·fc·s/fs at input-sample index s.
+
+    Nothing runs at the input rate but one product: splitting the input
+    index ``s = ri·q + b`` (ri = output-rate frame row, b = intra-frame
+    offset) splits the mixer phase by angle addition, so the intra-frame
+    factor ``cos/sin(2π·fc·b/fs)`` folds into the polyphase tap matrix per
+    channel on the host (:func:`channel_bank_plan`), and the whole bank
+    becomes
+
+        frames(x) @ [Hcos | Hsin]        # (m, q) @ (q, 2·C·A)
+        y = rotate by per-row phase      # output-rate cos/sin, O(C·m)
+
+    No (C, n) mixer tables or mixed copies of x are made; x is read once.
     """
-    dc, ds = _channel_bank(x, fs, center_freqs, bandwidth, decim, numtaps)
-    return dc, -ds
+    plan, tables = channel_bank_plan(
+        x.shape[-1], fs, center_freqs, bandwidth, decim, numtaps, device=x.device
+    )
+    return channelize_frames(frame_capture(x, plan), tables, plan)
 
 
 def channelize_iq(
@@ -419,12 +429,12 @@ def channelize_iq(
         y_re = decim((xr·cosφ)·h) + decim((xi·sinφ)·h)
         y_im = decim((xi·cosφ)·h) − decim((xr·sinφ)·h)
 
-    Both components ride one stacked frames product through
-    :func:`_channel_bank`.  Returns ``(y_re, y_im)``, each
-    ``x_re.shape[:-1] + (C, n_out)``.
+    Both components ride one stacked frames product.  Returns ``(y_re,
+    y_im)``, each ``x_re.shape[:-1] + (C, n_out)``.
     """
     if x_re.shape != x_im.shape:
         raise ValueError(f"I/Q shape mismatch: {tuple(x_re.shape)} vs {tuple(x_im.shape)}")
-    x = torch.stack([x_re, x_im])
-    dc, ds = _channel_bank(x, fs, center_freqs, bandwidth, decim, numtaps)
-    return dc[0] + ds[1], dc[1] - ds[0]
+    plan, tables = channel_bank_plan(
+        x_re.shape[-1], fs, center_freqs, bandwidth, decim, numtaps, device=x_re.device
+    )
+    return channelize_iq_frames(frame_capture(torch.stack([x_re, x_im]), plan), tables, plan)
