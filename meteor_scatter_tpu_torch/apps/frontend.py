@@ -34,8 +34,10 @@ from meteor_scatter_tpu_torch.ops.fir import (
     channel_bank_plan,
     channelize_frames,
     channelize_iq_frames,
+    channelize_iq_interleaved,
     frame_capture,
     frame_capture_host,
+    is_interleaved_iq,
     resample_poly,
 )
 from meteor_scatter_tpu_torch.ops.framing import frame_signal
@@ -62,8 +64,11 @@ def _bank(x, x_im, fs, centers, channel_bandwidth, decim, numtaps, device) -> to
     """The channelizer stage of :func:`iq_frontend`: (C, S / decim) real
     channel audio.  A numpy capture is framed on the host (a free copy) and
     uploaded framed to ``device``; a tensor capture is framed on its own
-    device.  Both give the same bits, those of ``channelize`` /
-    ``channelize_iq`` on the capture."""
+    device.  Both give the bits of ``channelize`` / ``channelize_iq`` on
+    the capture, but for a tensor I/Q capture whose I and Q interleave in
+    one complex64 buffer: that one is read in place, I and Q in one product
+    (``channelize_iq_interleaved``), and agrees with them to float32
+    rounding."""
     host = isinstance(x, np.ndarray) and (x_im is None or isinstance(x_im, np.ndarray))
     dev = resolve_device(device) if host else x.device
     plan, tables = channel_bank_plan(
@@ -71,6 +76,8 @@ def _bank(x, x_im, fs, centers, channel_bandwidth, decim, numtaps, device) -> to
         device=dev,
     )
     with span("channelize"):
+        if is_interleaved_iq(x, x_im):
+            return channelize_iq_interleaved(x, tables, plan)[0]
         if x_im is not None:
             x = np.stack([x, x_im]) if host else torch.stack([x, x_im])
         if host:

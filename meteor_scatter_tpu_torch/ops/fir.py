@@ -20,7 +20,15 @@ polyphase-decimated to the analysis rate on the device.
   ``Precision.HIGHEST``.
 
 I/Q travels as a ``(re, im)`` pair of float32 tensors, as in the
-reference.
+reference.  A pair that is the I and Q of one complex64 buffer (a GQRX
+raw capture's ``view_as_real(iq)[:, 0]`` and ``[:, 1]``) is channelized
+in place (:func:`channelize_iq_interleaved`): frame ``ri`` is then 2q
+consecutive floats of the buffer, so every frame that needs no padding is
+a row of a strided view of the capture, and I and Q fold into one
+``(2q, 2·C·A)`` tap table (row 2b for I, ``[Hsin | −Hcos]`` in row 2b+1
+for Q), one product with K = 2q in place of two with K = q.  Only the
+few head and tail frames that reach past the capture are copied, padded.
+That route agrees with the planar one to float32 rounding, not in bits.
 """
 
 from __future__ import annotations
@@ -372,6 +380,78 @@ def channelize_iq_frames(f: torch.Tensor, tables, plan: dict) -> Tuple[torch.Ten
     output, no framing on the device."""
     dc, ds = _bank_apply(f, *tables, plan["c_n"], plan["a_cols"], plan["n_out"])
     return dc[0] + ds[1], dc[1] - ds[0]
+
+
+def is_interleaved_iq(x, x_im) -> bool:
+    """True where ``x`` and ``x_im`` are the I and Q of one complex64
+    buffer: 1-D float32 views of one storage, each at stride 2, Q one float
+    after I (``view_as_real(c)[:, 0]`` and ``[:, 1]``), on any device."""
+    return (isinstance(x, torch.Tensor) and isinstance(x_im, torch.Tensor)
+            and x.dtype == x_im.dtype == torch.float32
+            and x.dim() == x_im.dim() == 1 and x.shape == x_im.shape
+            and x.stride() == x_im.stride() == (2,)
+            and x.untyped_storage().data_ptr() == x_im.untyped_storage().data_ptr()
+            and x_im.storage_offset() == x.storage_offset() + 1)
+
+
+def _iq_tap_table(hh: torch.Tensor) -> torch.Tensor:
+    """The (2q, 2·C·A) table that takes interleaved I/Q frames: row 2b is
+    ``hh[b] = [Hcos | Hsin]`` for I, row 2b+1 ``[Hsin | −Hcos]`` for Q.
+    Its product gives ``G_cos = Gc_I + Gs_Q`` and ``G_sin = Gs_I − Gc_Q``,
+    which the rotation turns into ``dc = y_re`` and ``ds = −y_im``."""
+    half = hh.shape[1] // 2
+    q_rows = torch.cat([hh[:, half:], -hh[:, :half]], dim=1)
+    return torch.stack([hh, q_rows], dim=1).reshape(2 * hh.shape[0], hh.shape[1])
+
+
+def _padded_iq_frames(xs: torch.Tensor, n: int, pl: int, q: int, r_lo: int, r_hi: int):
+    """Frames ``[r_lo, r_hi)`` of the zero-padded interleaved capture ``xs``
+    (2n floats) as a ``(r_hi − r_lo, 2q)`` copy of only the samples they
+    touch."""
+    s_lo, s_hi = r_lo * q - pl, r_hi * q - pl
+    a, b = max(s_lo, 0), min(s_hi, n)
+    f = xs.new_zeros(2 * (s_hi - s_lo))
+    if b > a:
+        f[2 * (a - s_lo): 2 * (b - s_lo)] = xs[2 * a: 2 * b]
+    return f.view(r_hi - r_lo, 2 * q)
+
+
+def channelize_iq_interleaved(x: torch.Tensor, tables,
+                              plan: dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`channelize_iq` of an interleaved capture (``x`` the I view of
+    :func:`is_interleaved_iq`), read in place: frame ``ri`` holds samples
+    ``[ri·q − pl, ri·q − pl + q)``, 2q consecutive floats, so the frames
+    ``[r0, r1)`` that lie inside the capture are the rows of one strided
+    view of it, and their outputs ``[r0, r1 − A + 1)`` one product against
+    :func:`_iq_tap_table`.  The outputs before and after come from padded
+    copies of the few frames they read; a capture with no such interior
+    takes one padded piece.  Returns ``(y_re, y_im)``, each (C, n_out)."""
+    hh, cr, sr = tables
+    n, pl, q = plan["n"], plan["pl"], plan["q"]
+    c_n, a_cols, n_out, m = plan["c_n"], plan["a_cols"], plan["n_out"], plan["m"]
+    xs = x.as_strided((2 * n,), (1,))
+    r0 = -(-pl // q)  # the first frame that starts inside the capture
+    r1 = min((n + pl) // q, m)  # one past the last that ends inside it
+    o1 = r1 - a_cols + 1  # outputs [r0, o1) read interior frames only
+    pieces = [(0, r0, False), (r0, o1, True), (o1, n_out, False)] if o1 > r0 else [
+        (0, n_out, False)]
+    w = _iq_tap_table(hh)
+    with span("bank_in_place"):
+        dcs, dss = [], []
+        for lo, hi, inside in pieces:
+            if hi <= lo:
+                continue
+            r_hi = hi + a_cols - 1
+            if inside:
+                f = xs.as_strided((r_hi - lo, 2 * q), (2 * q, 1),
+                                  xs.storage_offset() + 2 * (lo * q - pl))
+            else:
+                f = _padded_iq_frames(xs, n, pl, q, lo, r_hi)
+            dc, ds = _bank_apply(f, w, cr[:, lo:r_hi], sr[:, lo:r_hi], c_n, a_cols, hi - lo)
+            dcs.append(dc)
+            dss.append(ds)
+        dc, ds = torch.cat(dcs, -1), torch.cat(dss, -1)
+    return dc, -ds
 
 
 def channelize(
