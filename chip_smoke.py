@@ -14,7 +14,7 @@ non-zero (there is no CPU fallback):
    process per source, all started together.
 3. kernel_check  — each kernel against its plain PyTorch twin on the card at
    the main paths' shapes, with stated tolerances, both timed: K1 (the
-   adaptive solver's walk route, one cooperative launch across the SMs, at
+   adaptive solver, one cooperative launch across the SMs, at
    a 1 h series, a first and a later chunk of a day, and on dense series: a
    freeze that rarely lifts, one that never does, a 2 000-block window;
    with the fix-up's counts; its time is the profiler's device time of the
@@ -30,7 +30,7 @@ non-zero (there is no CPU fallback):
    launches, with its share of the bound).
 4. e2e           — G1: a 24 h, 6 kHz, int16 WAV with a 1 s 1003 Hz tone
    every 47 s and one on each of K1's chunk seams through
-   ``apps.analyze.main`` (K1 launched once per chunk, by the walk route,
+   ``apps.analyze.main`` (K1 launched once per chunk,
    every tone detected, fused == parallel events), adaptive and
    ``--fixed-threshold``, each against the JAX package's golden output;
    a profiled warm run of the day.
@@ -102,7 +102,7 @@ non-zero (there is no CPU fallback):
    21:00 (pump, wav, wav, pump: CSVs and PNGs byte-equal, the native ring
    and pump from ``csrc/ms_native.cc``, 0 dropped, segments/s of each);
    with matplotlib, ``apps.analyze.main --plot-dir`` on the batch day's
-   first hour (4 PNGs, K1 once by the walk route, ms for the plots) and
+   first hour (4 PNGs, K1 once, ms for the plots) and
    ``apps.live.main --ui`` on 2 min of the live day under Agg, pacing off
    (the event lines of a run without it, K3 once a 1 s feed, ms a feed with
    and without the view); with pandas, ``apps.merge.main`` over the
@@ -456,12 +456,12 @@ def k1_args(label: str) -> tuple:
         carry_i = torch.tensor([0, -1], dtype=torch.int32, device=dev)
         carry_f = torch.stack([fixed_thr, fixed_thr]).float()
     return (d, carry_i, carry_f, halo, k, w, sv["freeze_blocks_before"],
-            sv["freeze_blocks_after"], sv["fixed_threshold_blocks"], n)
+            sv["freeze_blocks_after"], sv["fixed_threshold_blocks"])
 
 
 def phase_kernel_k1() -> dict:
     """K1 (kernel) against its twin on the card, at the main path's shapes
-    and on dense series, each by the walk route and timed."""
+    and on dense series, each timed."""
     import torch
 
     from meteor_scatter_tpu_torch.ops.kernels import adaptive_kernel as ak
@@ -470,14 +470,14 @@ def phase_kernel_k1() -> dict:
     for label in K1_CASES:
         args = k1_args(label)
         n, halo = args[0].shape[0], args[3]
-        walks = ak.walk_launches
+        launches = ak.launches
         thr_k, ab_k, s_k, c_k = ak._launch(*args)
-        route = "walk" if ak.walk_launches == walks + 1 else "rounds"
+        launched = ak.launches == launches + 1
         untrusted, fixup_walks, walked = ak.last_fixup.tolist()
-        thr_p, ab_p, s_p, c_p = ak.adaptive_solver_plain(*args)
+        thr_p, ab_p, s_p, c_p = ak.adaptive_solver_plain(*args, n)
         torch.cuda.synchronize()
         case = {
-            "case": label, "n": n, "halo": halo, "route": route,
+            "case": label, "n": n, "halo": halo,
             "untrusted_seams": untrusted, "fixup_walks": fixup_walks, "fixup_blocks": walked,
             "above_equal": bool(torch.equal(ab_k, ab_p)),
             "s_incl_equal": bool(torch.equal(s_k, s_p)),
@@ -488,10 +488,10 @@ def phase_kernel_k1() -> dict:
             "csm_tol": CSM_RTOL * max(1.0, float(c_p.abs().max())),
             "ms": kernel_device_ms(lambda: ak._launch(*args), "walk_kernel"),
             "call_ms": cuda_ms(lambda: ak._launch(*args)),
-            "plain_ms": cuda_ms(lambda: ak.adaptive_solver_plain(*args)),
+            "plain_ms": cuda_ms(lambda: ak.adaptive_solver_plain(*args, n)),
         }
         case["ok"] = (
-            route == "walk" and case["above_equal"] and case["s_incl_equal"]
+            launched and case["above_equal"] and case["s_incl_equal"]
             and case["thr_max_abs_err"] <= THR_TOL_DB
             and case["csm_max_abs_err"] <= case["csm_tol"]
         )
@@ -601,27 +601,25 @@ def phase_e2e(tmp: str) -> dict:
     # --- the main path, through the CLI entry point; counted launches ---
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ak.launches = ak.walk_launches = 0
+    ak.launches = 0
     log = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(log), recording(analyze, "proc_wav_file") as made:
         rc = analyze.main([wav, "--out-csv", out["fused.csv"], "--out-audacity", out["fused.txt"],
                            "--device", DEVICE])
     main_wall = time.perf_counter() - t0
-    launches, walk_launches = ak.launches, ak.walk_launches
+    launches = ak.launches
     peak = torch.cuda.max_memory_allocated()
     if rc != 0:
         raise RuntimeError(f"analyze.main returned {rc}")
-    if launches != want_launches or walk_launches != want_launches:
-        raise AssertionError(f"adaptive_solver launched {launches} times ({walk_launches} by the "
-                             f"walk route), expected {want_launches} walks")
+    if launches != want_launches:
+        raise AssertionError(f"adaptive_solver launched {launches} times, expected {want_launches}")
     # --- the same files against the JAX package's (tests/data/golden/G1) ---
     res = made[0]
     golden_check("G1", "adaptive", lambda: gc.compare_analyzer(
         golden, "adaptive", hashes, file_text(out["fused.csv"]), file_text(out["fused.txt"]),
         res.delta_power, res.thresholds, ANALYZER_DB_ATOL, THR_TOL_DB, K2_ATOL[2]),
-        {"adaptive_solver": launches, "walk": walk_launches,
-         "chunk_seams": gf.k1_seam_blocks(n_blocks)})
+        {"adaptive_solver": launches, "chunk_seams": gf.k1_seam_blocks(n_blocks)})
     zero_launch_counts()
     with contextlib.redirect_stdout(io.StringIO()), recording(analyze, "proc_wav_file") as made:
         rc = analyze.main([wav, "--out-csv", out["fixed.csv"], "--out-audacity", out["fixed.txt"],
@@ -689,7 +687,7 @@ def phase_e2e(tmp: str) -> dict:
 
     e2e = {
         "phase": "e2e", "hours": HOURS, "samples": FS * HOURS * 3600, "blocks": n_blocks,
-        "synth_write_s": synth_s, "launches": launches, "walk_launches": walk_launches,
+        "synth_write_s": synth_s, "launches": launches,
         "want_launches": want_launches,
         "events": len(fused), "tones": len(starts), "tones_missed": 0,
         "fused_equals_parallel": True, "event_db_max_abs_err": db_err,
@@ -1196,7 +1194,7 @@ def zero_launch_counts() -> None:
     from meteor_scatter_tpu_torch.ops.kernels import bandpower_kernel as bk
     from meteor_scatter_tpu_torch.ops.kernels import stream_kernel as sk
 
-    ak.launches = ak.walk_launches = bk.launches = sk.launches = 0
+    ak.launches = bk.launches = sk.launches = 0
 
 
 STATION_LINE = re.compile(r"^station (\d+) \(.*?\): (\d+) events (\[.*?\]) \(truth: (\[.*\])\)$", re.M)
@@ -1828,12 +1826,9 @@ def phase_e2e_host(tmp: str, inputs: dict) -> dict:
             rc = analyze.main([inputs["batch_hour"], "--plot-dir", plots, "--out-csv", events_csv,
                                "--device", DEVICE])
         launches = launch_counts()
-        from meteor_scatter_tpu_torch.ops.kernels import adaptive_kernel as ak
-
         names = sorted(os.listdir(plots))
         if rc != 0 or names != ["delta_threshold.png", "hist_db.png", "hist_duration.png",
-                                "per_hour.png"] or launches["adaptive_solver"] != 1 \
-                or ak.walk_launches != 1:
+                                "per_hour.png"] or launches["adaptive_solver"] != 1:
             raise AssertionError(f"analyze --plot-dir: rc {rc}, {names}, {launches}")
         res = analyze.proc_wav_file(inputs["batch_hour"], device=DEVICE, verbose=False,
                                     expected_sample_rate=None,
@@ -2612,7 +2607,7 @@ def phase_e2e_episode(tmp: str) -> dict:
     impl="hop")`` on a 2 x 4 mesh of the card, K3 once per position,
     against the unsharded hop; (d) ``welch_band_sums_db`` on the card
     against the CPU in both branches, and ``adaptive_thresholds_fast`` on
-    the whole batch day against K1's walk route; (e) the scan, jump and hop
+    the whole batch day against K1; (e) the scan, jump and hop
     on the CPU on the stations' series and the live day's first feed.  The
     routed solvers' K3 launches, each read from counts zeroed just before
     its call, are ``k3_launches``, added to the kernel record: (a) the two
@@ -2803,22 +2798,22 @@ def phase_e2e_episode(tmp: str) -> dict:
     zero_launch_counts()
     ev_k, thr_k = adaptive._detect_adaptive_fused(delta, EPISODE_K1_CAP, **SOLVER)
     torch.cuda.synchronize()
-    walks = ak.walk_launches
-    want_walks = math.ceil(delta.shape[0] / (ak.MAX_FUSED_BLOCKS - SOLVER["window_blocks"]))
+    k1 = ak.launches
+    want_k1 = math.ceil(delta.shape[0] / (ak.MAX_FUSED_BLOCKS - SOLVER["window_blocks"]))
     thr_err = max_dev(thr_f, thr_k)
     # runs of above are the events: with no overflow, equal events are an equal mask
     same = {f: bool(torch.equal(getattr(ev_f, f), getattr(ev_k, f)))
             for f in ("start", "stop", "count", "overflow")}
     if not (all(same.values()) and not bool(ev_f.overflow) and int(ev_f.count) > 0
             and above_f.device.type == torch.device(DEVICE).type
-            and thr_err <= THR_TOL_DB and walks == want_walks):
+            and thr_err <= THR_TOL_DB and k1 == want_k1):
         raise AssertionError(f"adaptive_thresholds_fast against K1 on the day: {same}, "
-                             f"thresholds {thr_err} dB, {walks} walk launches of {want_walks}")
+                             f"thresholds {thr_err} dB, {k1} launches of {want_k1}")
     _, _, rounds = adaptive._fixpoint(delta, **SOLVER)
     out["adaptive_thresholds_fast"] = {
         "blocks": int(delta.shape[0]), "above_blocks": int(above_f.sum()),
         "events": int(ev_f.count), "events_equal_k1": True, "fixpoint_rounds": rounds,
-        "threshold_max_abs_dev_db": thr_err, "tol_db": THR_TOL_DB, "k1_walk_launches": walks,
+        "threshold_max_abs_dev_db": thr_err, "tol_db": THR_TOL_DB, "k1_launches": k1,
         "wall_s": fast_s, "ms": cuda_ms(lambda: adaptive.adaptive_thresholds_fast(delta, **SOLVER),
                                         warmup=1, reps=5),
         "k1_ms": cuda_ms(lambda: adaptive._detect_adaptive_fused(delta, EPISODE_K1_CAP, **SOLVER),

@@ -13,15 +13,7 @@
 //      windowed value of the last updatable block, else the carried one;
 //   3. the run-start prefix count s_incl and the masked prefix sum csm.
 //
-// The earlier design, one CTA of 1024 threads on one of the 132 SMs, is
-// kept below as the round route (`rounds_kernel`).  It iterated the TPU
-// kernel's fixpoint: every round a serial walk of the chunk in 8 192-block
-// tiles with two block-wide scans, ~132 us a round at 131 072 blocks, 3-5
-// rounds plus a stats pass and a run-sums pass on ordinary data, 87 rounds
-// at k = 1.5 and 1 055 when a freeze never lifts.  The fixpoint is a TPU
-// workaround: its vector unit has no cheap sequential scan.
-//
-// The walk route (`walk_kernel`) solves the recurrence directly, across the
+// The kernel (`walk_kernel`) solves the recurrence directly, across the
 // card.  The recurrence is a machine of two scalars: before block p the
 // state is free (p > F) or frozen at horizon F with the threshold of key K.
 // A free state carries no memory, so from a free block on the future
@@ -59,13 +51,6 @@
 // measures each phase.  A grid that cannot be co-resident is refused: no
 // fallback.
 //
-// The round cap.  The walk gives the converged fixpoint.  Round r of the
-// TPU kernel's iteration is exact on [0, halo + r), because thr[i] reads
-// only above[< i]; so any max_rounds >= total - halo (the solved blocks)
-// returns exactly the converged result, and every app path passes such a
-// cap.  A smaller cap returns the capped iterate, which only the round
-// route computes: the wrapper picks the route by the cap.
-//
 // Rounding: m, m2 - m*m and m + k*std use __fmul_rn / __fadd_rn /
 // __fsub_rn / __fdiv_rn / __fsqrt_rn, which the compiler never contracts
 // into an FMA, so each step rounds as the PyTorch twin's separate ops do.
@@ -78,11 +63,6 @@
 #include <cuda_runtime.h>
 
 namespace {
-
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
-constexpr int kItems = 8;
-constexpr int kTile = kThreads * kItems;
 
 struct MaxI {
   __device__ __forceinline__ int operator()(int a, int b) const { return a > b ? a : b; }
@@ -131,31 +111,6 @@ __device__ __forceinline__ T block_exclusive(T x, Op op, T identity, T& carry, T
   return out;
 }
 
-// ---------------------------------------------------------------------------
-// The round route: the earlier design, for a round cap below the solved
-// block count.
-
-struct Params {
-  const float* delta;    // [total] halo then the chunk
-  int total;
-  int halo;              // 0 or window
-  const int* carry_i;    // [2] i0 (absolute index of block `halo`), freeze_until_in
-  const float* carry_f;  // [2] fixed_thr, thr_in
-  int window;
-  int freeze_before;
-  int freeze_after;
-  int fixed_blocks;
-  float k_std;
-  int max_rounds;
-  float* cs;             // [total] scratch: exclusive prefix sum of d
-  float* cs2;            // [total] scratch: exclusive prefix sum of d*d
-  float* windowed;       // [total] scratch: m + k*std
-  uint8_t* above;        // [total] valid & (d > thr), 0/1
-  float* thr;            // [total - halo]
-  int* s_incl;           // [total - halo]
-  float* csm;            // [total - halo]
-};
-
 // The windowed threshold of block i from its exclusive prefix sums.
 __device__ __forceinline__ float windowed_at(float cs_i, float cs2_i, float lo1, float lo2,
                                              int iabs, int window, float k_std) {
@@ -171,168 +126,8 @@ __device__ __forceinline__ float windowed_at(float cs_i, float cs2_i, float lo1,
   return cnt > 0.f ? __fadd_rn(m, __fmul_rn(k_std, sd)) : 0.f;
 }
 
-// Stage 1: cs = prefix_sum(d) - d and cs2 = prefix_sum(d*d) - d*d, as the
-// TPU kernel forms its exclusive sums; then the windowed threshold.
-__device__ void rolling_stats(const Params& p, int i0, int* smi, float* smf) {
-  const int t0 = threadIdx.x * kItems;
-  float c1 = 0.f, c2 = 0.f;
-  for (int base = 0; base < p.total; base += kTile) {
-    float d[kItems], s1[kItems], s2[kItems];
-    float r1 = 0.f, r2 = 0.f;
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      const int i = base + t0 + j;
-      d[j] = i < p.total ? p.delta[i] : 0.f;
-      r1 = __fadd_rn(r1, d[j]);
-      r2 = __fadd_rn(r2, __fmul_rn(d[j], d[j]));
-      s1[j] = r1;
-      s2[j] = r2;
-    }
-    const float b1 = block_exclusive<kWarps>(r1, AddF(), 0.f, c1, smf);
-    const float b2 = block_exclusive<kWarps>(r2, AddF(), 0.f, c2, smf);
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      const int i = base + t0 + j;
-      if (i < p.total) {
-        p.cs[i] = __fsub_rn(__fadd_rn(b1, s1[j]), d[j]);
-        p.cs2[i] = __fsub_rn(__fadd_rn(b2, s2[j]), __fmul_rn(d[j], d[j]));
-      }
-    }
-  }
-  __syncthreads();  // cs / cs2 of other threads are read below
-
-  for (int i = threadIdx.x; i < p.total; i += kThreads) {
-    const float lo1 = i >= p.window ? p.cs[i - p.window] : 0.f;
-    const float lo2 = i >= p.window ? p.cs2[i - p.window] : 0.f;
-    p.windowed[i] = windowed_at(p.cs[i], p.cs2[i], lo1, lo2, i - p.halo + i0, p.window, p.k_std);
-    p.above[i] = 0;
-  }
-  __syncthreads();
-}
-
-// Stage 2, one round: thr = thresholds_from(above), then
-// above = valid & (d > thr).  Returns (uniformly over the block) whether
-// any bit of `above` changed.  Each thread reads and writes only its own
-// positions of `above`, so the update is in place.
-__device__ bool solve_round(const Params& p, int i0, int freeze_in, float fixed_thr,
-                            float thr_in, int* smi) {
-  const int t0 = threadIdx.x * kItems;
-  int freeze_carry = freeze_in;  // the carried horizon seeds the prefix max
-  int key_carry = INT_MIN;
-  int changed = 0;
-  for (int base = 0; base < p.total; base += kTile) {
-    int f_excl[kItems], k_incl[kItems];
-    uint8_t a_old[kItems];
-    int run = INT_MIN;
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      const int i = base + t0 + j;
-      const int iabs = i - p.halo + i0;
-      a_old[j] = i < p.total ? p.above[i] : 0;  // 0 outside the solved region
-      f_excl[j] = run;
-      const int nf = max(iabs + p.freeze_after, max(0, iabs - p.freeze_before));
-      run = max(run, a_old[j] ? nf : -1);
-    }
-    const int f_base = block_exclusive<kWarps>(run, MaxI(), INT_MIN, freeze_carry, smi);
-
-    int krun = INT_MIN;
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      const int i = base + t0 + j;
-      const int iabs = i - p.halo + i0;
-      const bool valid = i >= p.halo && i < p.total;
-      const int freeze_prev = max(f_base, f_excl[j]);
-      const bool upd = valid && iabs > freeze_prev && iabs >= p.fixed_blocks;
-      krun = max(krun, upd ? i : -1);
-      k_incl[j] = krun;
-    }
-    const int k_base = block_exclusive<kWarps>(krun, MaxI(), INT_MIN, key_carry, smi);
-
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      const int i = base + t0 + j;
-      if (i < p.total) {
-        const int iabs = i - p.halo + i0;
-        const int last_upd = max(k_base, k_incl[j]);
-        float t;
-        if (iabs < p.fixed_blocks) {
-          t = fixed_thr;
-        } else if (last_upd >= 0) {
-          t = p.windowed[last_upd];
-        } else {
-          t = thr_in;  // nothing updatable yet in this chunk
-        }
-        const uint8_t a = (i >= p.halo && p.delta[i] > t) ? 1 : 0;
-        changed |= a != a_old[j];
-        p.above[i] = a;
-        if (i >= p.halo) p.thr[i - p.halo] = t;
-      }
-    }
-  }
-  return __syncthreads_or(changed) != 0;
-}
-
-// Stage 3: runs-started prefix count and masked prefix sum over the solved
-// region.  The halo holds above == 0, so a run that starts at the chunk's
-// first block counts as a start.
-__device__ void run_sums(const Params& p, int* smi, float* smf) {
-  const int t0 = threadIdx.x * kItems;
-  int sc = 0;
-  float mc = 0.f;
-  for (int base = 0; base < p.total; base += kTile) {
-    int s_loc[kItems];
-    float m_loc[kItems];
-    int rs = 0;
-    float rm = 0.f;
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      const int i = base + t0 + j;
-      const int a = i < p.total ? p.above[i] : 0;
-      const int prev = (i > 0 && i <= p.total) ? p.above[i - 1] : 0;
-      rs += a & (prev ^ 1);
-      rm = __fadd_rn(rm, a ? p.delta[i] : 0.f);
-      s_loc[j] = rs;
-      m_loc[j] = rm;
-    }
-    const int s_base = block_exclusive<kWarps>(rs, AddI(), 0, sc, smi);
-    const float m_base = block_exclusive<kWarps>(rm, AddF(), 0.f, mc, smf);
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      const int i = base + t0 + j;
-      if (i >= p.halo && i < p.total) {
-        p.s_incl[i - p.halo] = s_base + s_loc[j];
-        p.csm[i - p.halo] = __fadd_rn(m_base, m_loc[j]);
-      }
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads, 1) rounds_kernel(Params p) {
-  __shared__ int smi[kWarps];
-  __shared__ float smf[kWarps];
-  const int i0 = p.carry_i[0];
-  const int freeze_in = p.carry_i[1];
-  const float fixed_thr = p.carry_f[0];
-  const float thr_in = p.carry_f[1];
-
-  rolling_stats(p, i0, smi, smf);
-
-  // above starts all-zero; round 1 is thresholds_from(zeros)
-  bool changed = solve_round(p, i0, freeze_in, fixed_thr, thr_in, smi);
-  int rounds = 1;
-  while (changed && rounds < p.max_rounds) {
-    changed = solve_round(p, i0, freeze_in, fixed_thr, thr_in, smi);
-    ++rounds;
-  }
-  // A round that changed nothing already wrote thr = thresholds_from(above).
-  // Stopped by the round cap instead: one more round evaluates it.
-  if (changed) solve_round(p, i0, freeze_in, fixed_thr, thr_in, smi);
-
-  run_sums(p, smi, smf);
-}
-
 // ---------------------------------------------------------------------------
-// The walk route.
+// The kernel.
 
 constexpr int kSeg = 1024;                  // blocks per CTA (SEGMENT in adaptive_kernel.py)
 constexpr int kWalkThreads = 256;
@@ -834,7 +629,7 @@ __global__ void __launch_bounds__(kWalkThreads) walk_kernel(WalkParams p) {
   }
 }
 
-// Where each scratch array of the walk route lies, in 4-byte words.
+// Where each scratch array of the kernel lies, in 4-byte words.
 struct WalkLayout {
   long long stats, cs, cs2, windowed, keys, free_above, spec_free, ready, trust, seg_f,
       seg_starts, seg_masked, exits, size;
@@ -865,12 +660,12 @@ struct WalkLayout {
 
 }  // namespace
 
-// Scratch words (4 bytes each) that the walk route needs for `total` blocks.
+// Scratch words (4 bytes each) that the kernel needs for `total` blocks.
 // The first three hold, after a launch: untrusted seams, the fix-up's walks,
 // and the blocks it walked.
 extern "C" long long ms_adaptive_walk_scratch_words(int total) { return WalkLayout(total).size; }
 
-// Launches one chunk on `stream` by the walk route: one cooperative launch
+// Launches one chunk on `stream`: one cooperative launch
 // of ceil(total / 1024) CTAs.  Pointers are device pointers; `scratch` holds
 // ms_adaptive_walk_scratch_words(total) words.  Returns -1 when the grid
 // cannot be co-resident, -2 when the device has no cooperative launch, -3
@@ -941,35 +736,4 @@ extern "C" int ms_adaptive_walk(const float* delta, int total, int halo, const i
                                     dim3(kWalkThreads), args, 0,
                                     static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
-}
-
-// Launches one chunk on `stream` by the round route (one CTA, the fixpoint
-// iterated up to `max_rounds`).  `scratch` holds 3 * total floats.  Returns
-// cudaGetLastError() after the launch.
-extern "C" int ms_adaptive_rounds(const float* delta, int total, int halo, const int* carry_i,
-                                  const float* carry_f, int window, int freeze_before,
-                                  int freeze_after, int fixed_blocks, float k_std,
-                                  int max_rounds, float* scratch, uint8_t* above, float* thr,
-                                  int* s_incl, float* csm, void* stream) {
-  Params p;
-  p.delta = delta;
-  p.total = total;
-  p.halo = halo;
-  p.carry_i = carry_i;
-  p.carry_f = carry_f;
-  p.window = window;
-  p.freeze_before = freeze_before;
-  p.freeze_after = freeze_after;
-  p.fixed_blocks = fixed_blocks;
-  p.k_std = k_std;
-  p.max_rounds = max_rounds;
-  p.cs = scratch;
-  p.cs2 = scratch + total;
-  p.windowed = scratch + 2 * static_cast<long>(total);
-  p.above = above;
-  p.thr = thr;
-  p.s_incl = s_incl;
-  p.csm = csm;
-  rounds_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
 }

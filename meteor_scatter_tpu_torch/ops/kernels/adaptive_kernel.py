@@ -10,21 +10,23 @@ statistics, the freeze-recurrence fixpoint, and the run sums that
 Dispatch is by the device of the series:
 
 * CUDA tensor → the hand-written kernel ``csrc/adaptive_solver.cu``, built
-  at first use.  Whatever the kernel does not take raises; there is no
-  fallback to the twin.  A round cap of at least the solved block count
-  (every app path passes one) takes the walk route: one cooperative launch
-  across the SMs that solves the freeze recurrence by a segmented walk and
-  gives the converged result.  A smaller cap takes the round route, one CTA
-  iterating the TPU kernel's fixpoint up to the cap.
+  at first use: one cooperative launch across the SMs that solves the
+  freeze recurrence by a segmented walk and gives the converged result.
+  Whatever the kernel does not take raises; there is no fallback to the
+  twin.  That includes a round cap below the solved block count (every app
+  path passes none, which is the converged cap): such a cap asks for the
+  TPU fixpoint's intermediate iterate, which the kernel does not compute.
+  A caller that wants that iterate on the card calls
+  :func:`adaptive_solver_plain` itself.
 * CPU tensor → :func:`adaptive_solver_plain`, the same chunk solver in
-  plain PyTorch (``cumsum``, ``cummax`` and a gather).  ``chip_smoke.py``
-  also runs it on the GPU, as the reference the kernel is held against.
+  plain PyTorch (``cumsum``, ``cummax`` and a gather), capped iterate
+  included.  ``chip_smoke.py`` also runs it on the GPU, as the reference
+  the kernel is held against.
 
-``launches`` counts kernel launches of both routes and ``walk_launches``
-those of the walk route, so a run can show that it went through the
-kernel, and which way.  ``last_fixup`` is, on the card, the walk route's
-last count of [untrusted seams, fix-up walks, blocks walked] (a view of the
-launch's scratch).
+``launches`` counts kernel launches, so a run can show that it went through
+the kernel.  ``last_fixup`` is, on the card, the last launch's count of
+[untrusted seams, fix-up walks, blocks walked] (a view of the launch's
+scratch).
 
 One launch takes at most :data:`MAX_FUSED_BLOCKS` blocks, the JAX
 package's cap, so that the chunked path
@@ -43,11 +45,10 @@ from meteor_scatter_tpu_torch.ops.kernels import _build
 from meteor_scatter_tpu_torch.utils.timing import wait
 
 MAX_FUSED_BLOCKS = 131072
-SEGMENT = 1024  # blocks of the series per CTA of the walk route
+SEGMENT = 1024  # blocks of the series per CTA of the kernel
 
-launches = 0  # kernel launches so far, both routes; chip_smoke.py resets and reads it
-walk_launches = 0  # of those, launches of the walk route
-last_fixup = None  # the walk route's fix-up counts of its last launch
+launches = 0  # kernel launches so far; chip_smoke.py resets and reads it
+last_fixup = None  # the fix-up counts of the last launch
 _GRID_TOO_LARGE, _NO_COOPERATIVE_LAUNCH = -1, -2  # ms_adaptive_walk's own error codes
 
 
@@ -159,12 +160,10 @@ def _launch(
     freeze_before: int,
     freeze_after: int,
     fixed_blocks: int,
-    max_rounds: int,
 ) -> Result:
-    """One launch of ``csrc/adaptive_solver.cu`` on the current stream, by
-    the walk route when ``max_rounds`` covers the solved blocks, else by the
-    round route."""
-    global launches, walk_launches, last_fixup
+    """One launch of ``csrc/adaptive_solver.cu`` on the current stream: the
+    converged result."""
+    global launches, last_fixup
     if not d.is_cuda:
         raise ValueError(f"adaptive solver kernel takes a CUDA tensor, got one on {d.device}")
     total = d.shape[0] if d.dim() == 1 else -1
@@ -180,8 +179,8 @@ def _launch(
     for c, dt in ((carry_i, torch.int32), (carry_f, torch.float32)):
         if c.dtype != dt or c.shape != (2,) or c.device != d.device or not c.is_contiguous():
             raise ValueError(f"carry must be a contiguous ({dt}, shape (2,)) tensor on {d.device}")
-    if min(window, freeze_before, freeze_after, fixed_blocks) < 0 or max_rounds < 1:
-        raise ValueError("window / freeze / fixed block counts must be >= 0 and max_rounds >= 1")
+    if min(window, freeze_before, freeze_after, fixed_blocks) < 0:
+        raise ValueError("window / freeze / fixed block counts must be >= 0")
 
     n = total - halo
     dev = d.device
@@ -191,18 +190,12 @@ def _launch(
     above = torch.empty(total, dtype=torch.bool, device=dev)
 
     lib = _bind(_build.load("adaptive_solver"))
-    walk = max_rounds >= n  # the converged result: see the header of the .cu file
-    if walk:
-        scratch = torch.empty(lib.ms_adaptive_walk_scratch_words(total), dtype=torch.int32,
-                              device=dev)
-        fn, lead_or_cap = lib.ms_adaptive_walk, walk_lead(freeze_after)
-    else:
-        scratch = torch.empty(3 * total, dtype=torch.float32, device=dev)
-        fn, lead_or_cap = lib.ms_adaptive_rounds, max_rounds
+    scratch = torch.empty(lib.ms_adaptive_walk_scratch_words(total), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        err = fn(
+        err = lib.ms_adaptive_walk(
             d.data_ptr(), total, halo, carry_i.data_ptr(), carry_f.data_ptr(),
-            window, freeze_before, freeze_after, fixed_blocks, float(k_std), lead_or_cap,
+            window, freeze_before, freeze_after, fixed_blocks, float(k_std),
+            walk_lead(freeze_after),
             scratch.data_ptr(), above.data_ptr(), thr.data_ptr(), s_incl.data_ptr(),
             csm.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -215,19 +208,16 @@ def _launch(
     if err != 0:
         raise RuntimeError(f"adaptive solver kernel launch failed: CUDA error {err}")
     launches += 1
-    if walk:
-        walk_launches += 1
-        last_fixup = scratch[:3]
+    last_fixup = scratch[:3]
     return thr, above[halo:], s_incl, csm
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     if lib.ms_adaptive_walk.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.ms_adaptive_walk, lib.ms_adaptive_rounds):
-            # the int before the scratch is the walk's lead or the round cap
-            fn.argtypes = [p, i, i, p, p, i, i, i, i, ctypes.c_float, i, p, p, p, p, p, p]
-            fn.restype = ctypes.c_int
+        lib.ms_adaptive_walk.argtypes = [p, i, i, p, p, i, i, i, i, ctypes.c_float, i,
+                                         p, p, p, p, p, p]
+        lib.ms_adaptive_walk.restype = ctypes.c_int
         lib.ms_adaptive_walk_scratch_words.argtypes = [i]
         lib.ms_adaptive_walk_scratch_words.restype = ctypes.c_longlong
     return lib
@@ -254,9 +244,18 @@ def _run(delta_haloed, i0, freeze_in, fixed_thr, thr_in, halo, k_std, window,
     )
     if dev.type == "cpu":
         return adaptive_solver_plain(*args)
-    if dev.type == "cuda":
-        return _launch(*args)
-    raise ValueError(f"adaptive solver: tensors on {dev} are not supported (cpu or cuda)")
+    if dev.type != "cuda":
+        raise ValueError(f"adaptive solver: tensors on {dev} are not supported (cpu or cuda)")
+    # round r of the fixpoint is exact on the first r solved blocks (thr[i]
+    # reads only above[< i]), so a cap of at least the solved blocks is the
+    # converged result, the one result the kernel computes
+    n = d.shape[0] - int(halo)
+    if int(max_rounds) < n:
+        raise ValueError(
+            f"adaptive solver kernel computes the converged result only: max_rounds "
+            f"{max_rounds} is below the {n} solved blocks (adaptive_solver_plain "
+            f"computes the capped iterate)")
+    return _launch(*args[:-1])
 
 
 def adaptive_thresholds_fused(

@@ -81,6 +81,19 @@ class TestFusedSolverTwin:
         # frozen on entry: the first 40 solved blocks keep the carried threshold
         np.testing.assert_array_equal(t_out[0][:41].numpy(), np.float32(fixed_thr + 1.5))
 
+    @pytest.mark.parametrize("max_rounds", [1, 2])
+    def test_capped_iterate_matches_pallas(self, max_rounds):
+        # dense detections (k = 1.5) take many rounds to converge, so the
+        # cap stops the iteration at an intermediate iterate
+        d = series(4000, 31)
+        kw = dict(KW, threshold_std_factor=1.5)
+        t_out = tak.adaptive_solver_fused(torch.from_numpy(d), **kw, max_rounds=max_rounds)
+        j_out = jak.adaptive_solver_fused(jnp.asarray(d), interpret=True, **kw,
+                                          max_rounds=max_rounds)
+        assert_solver_equal(t_out, j_out)
+        converged = tak.adaptive_solver_fused(torch.from_numpy(d), **kw)
+        assert not torch.equal(t_out[1], converged[1])
+
     @pytest.mark.parametrize("seed,k", [(17, 4.0), (23, 3.0), (29, 2.5)])
     def test_above_mask_equals_parallel(self, seed, k):
         kw = dict(KW, threshold_std_factor=k)

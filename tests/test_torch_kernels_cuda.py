@@ -9,9 +9,10 @@ machine without JAX.  There, from the repo root (``--noconftest`` skips
 Tests marked ``cuda`` need a GPU and skip without one.  K1 (adaptive
 solver) and its twin take float prefix sums in different orders, so the
 above mask and ``s_incl`` must be equal, and ``thr`` / ``csm`` agree to
-``THR_ATOL`` / ``CSM_RTOL`` (the reasoning is in ``chip_smoke.py``), on
-both of K1's routes: the walk (a round cap covering the solved blocks) and
-the rounds (a smaller cap).  K3
+``THR_ATOL`` / ``CSM_RTOL`` (the reasoning is in ``chip_smoke.py``); a
+call capped below the solved blocks raises on the card and launches
+nothing (the capped iterate is held against JAX on the CPU, in
+``test_torch_adaptive.py``).  K3
 (the fused streaming solve) is bit-exact against its twin on thresholds,
 every event slot, count, overflow, every state leaf and the ring.  K2 (band power) sums its FP32 product in another order
 than the twin's ``torch.matmul``: dB levels agree to the JAX package's own
@@ -65,19 +66,19 @@ def cuda():
 
 
 def solver_args(d, halo=0, i0=0, freeze_in=-1, thr_shift=0.0, k=4.0, window=600,
-                fb=15, fa=100, fixed=50, max_rounds=None):
+                fb=15, fa=100, fixed=50):
+    """The arguments of ``_launch``; the twin's take a round cap after them."""
     fixed_thr = d.mean() + k * d.std(correction=0)
     carry_i = torch.tensor([i0, freeze_in], dtype=torch.int32, device=d.device)
     carry_f = torch.stack([fixed_thr, fixed_thr + thr_shift]).float()
-    rounds = d.shape[0] if max_rounds is None else max_rounds
-    return (d, carry_i, carry_f, halo, k, window, fb, fa, fixed, rounds)
+    return (d, carry_i, carry_f, halo, k, window, fb, fa, fixed)
 
 
 def assert_kernel_equals_twin(args):
     before = tak.launches
     thr_k, ab_k, s_k, c_k = tak._launch(*args)
     assert tak.launches == before + 1
-    thr_p, ab_p, s_p, c_p = tak.adaptive_solver_plain(*args)
+    thr_p, ab_p, s_p, c_p = tak.adaptive_solver_plain(*args, args[0].shape[0])
     torch.cuda.synchronize()
     assert torch.equal(ab_k, ab_p)
     assert torch.equal(s_k, s_p)
@@ -99,8 +100,6 @@ def assert_kernel_equals_twin(args):
         (5000, dict(window=0)),
         (5000, dict(fb=0, fa=1, fixed=1)),
         (5000, dict(k=1.5)),  # dense detections: many fixpoint rounds
-        (5000, dict(k=1.5, max_rounds=1)),  # stopped by the round cap
-        (5000, dict(k=1.5, max_rounds=2)),
     ],
 )
 def test_whole_series_matches_twin(cuda, n, kw):
@@ -132,7 +131,7 @@ def test_haloed_chunk_matches_twin(cuda, freeze_in, thr_shift):
     ],
 )
 def test_walk_seams_and_density_match_twin(cuda, label, n, kw):
-    """The walk route at its seams and on dense data, where speculation and
+    """K1 at its segments' seams and on dense data, where speculation and
     truth disagree and the fix-up re-walks."""
     d = series(n, n + 1)
     if label == "straddling_episodes":
@@ -141,9 +140,9 @@ def test_walk_seams_and_density_match_twin(cuda, label, n, kw):
     if label == "never_lifting":
         d[0] = abs(d[0]) + 5.0  # above block 0's zero threshold
     d = torch.from_numpy(d).to(cuda)
-    walks = tak.walk_launches
+    launches = tak.launches
     ab = assert_kernel_equals_twin(solver_args(d, **kw))
-    assert tak.walk_launches == walks + 1
+    assert tak.launches == launches + 1
     untrusted, fixup_walks, walked = tak.last_fixup.tolist()
     if label in ("dense_k1.5", "never_lifting", "fa_2000"):
         assert untrusted > 0 and fixup_walks > 0 and walked > 0
@@ -155,23 +154,32 @@ def test_walk_seams_and_density_match_twin(cuda, label, n, kw):
 
 @pytest.mark.cuda
 def test_route_by_round_cap(cuda):
-    """A cap that covers the solved blocks (the app paths' cap) walks; a
-    smaller one iterates rounds.  Both count in ``launches``."""
-    d = torch.from_numpy(series(5000, 11)).to(cuda)
-    for args, walks in (
-        (solver_args(d), True),
-        (solver_args(d, max_rounds=4999), False),
-        (solver_args(d, k=1.5, max_rounds=1), False),
-        (solver_args(d, k=1.5, max_rounds=2), False),
-        (solver_args(d, halo=600, i0=9400, max_rounds=4400), True),
-    ):
-        before, walks_before = tak.launches, tak.walk_launches
-        tak._launch(*args)
-        assert tak.launches == before + 1
-        assert tak.walk_launches == walks_before + int(walks)
-    walks_before = tak.walk_launches
-    tak.adaptive_solver_fused(d, 4.0, 600, 15, 100, 50)
-    assert tak.walk_launches == walks_before + 1
+    """A cap that covers the solved blocks (the app paths' cap) launches K1
+    once.  A smaller one asks for the fixpoint's intermediate iterate, which
+    the kernel does not compute: the call raises and launches nothing, and
+    the twin, called by name, still computes that iterate on the card."""
+    d = torch.from_numpy(series(5000, 5000)).to(cuda)
+    kw = dict(threshold_std_factor=1.5, window_blocks=600, freeze_blocks_before=15,
+              freeze_blocks_after=100, fixed_threshold_blocks=50)
+    before = tak.launches
+    tak.adaptive_solver_fused(d, **kw)
+    assert tak.launches == before + 1
+    fixed_thr = d.mean() + 1.5 * d.std(correction=0)
+    tak.adaptive_solver_fused_chunk(d, 9400, -1, fixed_thr, fixed_thr, 600, **kw, max_rounds=4400)
+    assert tak.launches == before + 2  # the cap is exactly the solved blocks
+    for cap in (0, 1, 2, d.shape[0] - 1):
+        before = tak.launches
+        with pytest.raises(ValueError, match="converged result only"):
+            tak.adaptive_solver_fused(d, **kw, max_rounds=cap)
+        with pytest.raises(ValueError, match="converged result only"):
+            tak.adaptive_thresholds_fused(d, **kw, max_rounds=cap)
+        with pytest.raises(ValueError, match="converged result only"):
+            tak.adaptive_solver_fused_chunk(d, 9400, -1, fixed_thr, fixed_thr, 600, **kw,
+                                            max_rounds=min(cap, 4399))
+        assert tak.launches == before
+    _, ab_1, _, _ = tak.adaptive_solver_plain(*solver_args(d, k=1.5), 1)
+    _, ab_n, _, _ = tak.adaptive_solver_plain(*solver_args(d, k=1.5), d.shape[0])
+    assert ab_1.is_cuda and not torch.equal(ab_1, ab_n)  # the cap stops this series
 
 
 @pytest.mark.cuda
@@ -768,14 +776,14 @@ ADAPTIVE_KW = dict(threshold_std_factor=4.0, window_blocks=600, freeze_blocks_be
 
 @pytest.mark.cuda
 def test_k1_walk_route_captured_equals_eager(cuda):
-    """One chunk by the walk route (the headline hour, 18 000 blocks), its
+    """One chunk of K1 (the headline hour, 18 000 blocks), its
     carries from Python numbers made on the card: captured, replayed, equal
     to the eager launch."""
     d = torch.from_numpy(series(18000, 21)).to(cuda)
-    walk = tak.walk_launches
+    launches = tak.launches
     assert_replay_equals_eager(lambda: tak.adaptive_solver_fused(d, **ADAPTIVE_KW),
                                lambda out: list(out), 1, lambda: tak.launches)
-    assert tak.walk_launches > walk
+    assert tak.launches > launches
 
 
 @pytest.mark.cuda

@@ -1,36 +1,21 @@
 #!/usr/bin/env python3
-"""Where K1's time goes on the card: clock64 stamps by phase, both routes.
+"""Where K1's time goes on the card: clock64 stamps by phase.
 
 Builds an instrumented copy of ``meteor_scatter_tpu_torch/csrc/adaptive_solver.cu``
-(stamps inserted at the phase boundaries by text substitution; the kernels'
+(stamps inserted at the phase boundaries by text substitution; the kernel's
 arithmetic is untouched) into ``build/torch_kernels/`` and runs it at the
-``chip_smoke.py`` K1 cases.  Prints one JSON line per case and route:
-
-* ``walk`` (the route every app path takes): per CTA the cycles of each
-  phase and of the wait at each grid sync after it, as medians over the
-  CTAs, the slowest CTA's speculative walk, CTA 0's fix-up, and the
-  fix-up's counts (untrusted seams, walks, blocks walked);
-* ``rounds`` (the earlier design, one CTA iterating the fixpoint; forced by
-  a round cap one below the solved blocks, which the converged iteration
-  never reaches): the cycles of the rolling stats, of each round, and of
-  the run sums, and the round count;
-
-each with the device time of the uninstrumented kernel (the profiler's, mean
-of 20 launches), and the SM clock at the end.  Run from the root of a
-checkout on a machine with an NVIDIA GPU::
+``chip_smoke.py`` K1 cases.  Prints one JSON line per case: per CTA the
+cycles of each phase and of the wait at each grid sync after it, as medians
+over the CTAs, the slowest CTA's speculative walk, CTA 0's fix-up, and the
+fix-up's counts (untrusted seams, walks, blocks walked), with the device
+time of the uninstrumented kernel (the profiler's, mean of 20 launches);
+and the SM clock at the end.  Run from the root of a checkout on a machine
+with an NVIDIA GPU::
 
     python3 tools/torch_k1_phase_cycles.py
 
 It imports nothing of JAX.  The stamps cost cycles of their own, so phase
 sums exceed the uninstrumented kernel's time a little.
-
-Before the walk route existed, the one-CTA kernel measured, at 1 980 MHz on
-an NVIDIA H100 80GB HBM3 (700 W), per phase (stats / rounds (count) / run
-sums, cycles; kernel ms by CUDA events): 1h 66 862 / 156 868 (4) / 52 310,
-0.181; chunk_first 492 690 / 1 314 827 (5) / 376 321, 1.164; chunk_haloed
-492 897 / 803 573 (3) / 382 580, 0.910; dense_k1.5 492 713 / 22 798 706
-(87) / 378 893, 12.10; never_lifting 492 866 / 277 218 101 (1 055) /
-395 742, 140.5; window_2000 493 575 / 798 884 (3) / 378 661, 0.891.
 """
 
 from __future__ import annotations
@@ -50,54 +35,10 @@ import chip_smoke as cs  # noqa: E402
 from meteor_scatter_tpu_torch.ops.kernels import _build  # noqa: E402
 from meteor_scatter_tpu_torch.ops.kernels import adaptive_kernel as ak  # noqa: E402
 
-ROUND_SLOTS = 64  # rounds stamped one by one; later rounds only in the sum
-SLOTS = 8 + ROUND_SLOTS
-WALK_SLOTS = 16  # stamps per CTA of the walk route
+WALK_SLOTS = 16  # stamps per CTA
 MAX_GRID = 2048
 
-ROUNDS_BODY = """  rolling_stats(p, i0, smi, smf);
-
-  // above starts all-zero; round 1 is thresholds_from(zeros)
-  bool changed = solve_round(p, i0, freeze_in, fixed_thr, thr_in, smi);
-  int rounds = 1;
-  while (changed && rounds < p.max_rounds) {
-    changed = solve_round(p, i0, freeze_in, fixed_thr, thr_in, smi);
-    ++rounds;
-  }
-  // A round that changed nothing already wrote thr = thresholds_from(above).
-  // Stopped by the round cap instead: one more round evaluates it.
-  if (changed) solve_round(p, i0, freeze_in, fixed_thr, thr_in, smi);
-
-  run_sums(p, smi, smf);
-}
-"""
-
-ROUNDS_STAMPED = """  long long* g = g_stamps;
-  const long long t0 = clock64();
-  rolling_stats(p, i0, smi, smf);
-  const long long t1 = clock64();
-  long long tr = clock64();
-  bool changed = solve_round(p, i0, freeze_in, fixed_thr, thr_in, smi);
-  if (threadIdx.x == 0) g[8] = clock64() - tr;
-  int rounds = 1;
-  while (changed && rounds < p.max_rounds) {
-    tr = clock64();
-    changed = solve_round(p, i0, freeze_in, fixed_thr, thr_in, smi);
-    if (threadIdx.x == 0 && rounds < %d) g[8 + rounds] = clock64() - tr;
-    ++rounds;
-  }
-  if (changed) solve_round(p, i0, freeze_in, fixed_thr, thr_in, smi);
-  const long long t2 = clock64();
-  run_sums(p, smi, smf);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const long long t3 = clock64();
-    g[0] = t3 - t0; g[1] = t1 - t0; g[2] = t2 - t1; g[3] = rounds; g[4] = t3 - t2;
-  }
-}
-""" % ROUND_SLOTS
-
-# The walk route's grid syncs, in order, and the phase each one ends.
+# The kernel's grid syncs, in order, and the phase each one ends.
 WALK_SYNCS = [
     ("stats_scan", "segment totals published"),
     ("stats_offsets", "cs / cs2 published"),
@@ -115,15 +56,12 @@ def stamp(slot: int) -> str:
 
 
 def instrument(src: str) -> str:
-    """The kernel source with cycle counters: ``g_stamps`` for the round
-    route ([total, rolling stats, all rounds, round count, run sums, -, -,
-    -, round 1, round 2, ...]) and ``g_walk_stamps`` for the walk route
-    (per CTA: the start, then the clock before and after each grid sync,
-    then the end)."""
+    """The kernel source with cycle counters in ``g_walk_stamps`` (per CTA:
+    the start, then the clock before and after each grid sync, then the
+    end)."""
     edits = [
-        ("namespace {\n", "namespace {\n__device__ long long g_stamps[%d];\n"
-         "__device__ long long g_walk_stamps[%d];\n" % (SLOTS, WALK_SLOTS * MAX_GRID)),
-        (ROUNDS_BODY, ROUNDS_STAMPED),
+        ("namespace {\n", "namespace {\n__device__ long long g_walk_stamps[%d];\n"
+         % (WALK_SLOTS * MAX_GRID)),
         ("  const int g = blockIdx.x, G = p.grid;\n",
          "  const int g = blockIdx.x, G = p.grid;\n  %s\n" % stamp(0)),
         (WALK_END, WALK_END[:-2] + "  __syncthreads();\n  %s\n}\n" % stamp(2 * len(WALK_SYNCS) + 1)),
@@ -136,8 +74,6 @@ def instrument(src: str) -> str:
             raise RuntimeError(f"anchor not found once in the kernel source: {old!r}")
         src = src.replace(old, new)
     return src + (
-        '\nextern "C" int ms_read_stamps(long long* out, int n) {\n'
-        "  return (int)cudaMemcpyFromSymbol(out, g_stamps, n * sizeof(long long));\n}\n"
         '\nextern "C" int ms_read_walk_stamps(long long* out, int n) {\n'
         "  return (int)cudaMemcpyFromSymbol(out, g_walk_stamps, n * sizeof(long long));\n}\n")
 
@@ -185,29 +121,13 @@ def walk_record(stamped, plain, label: str, args: tuple) -> dict:
     end = 2 * len(WALK_SYNCS)
     phases["run_offsets_write"] = t[:, end + 1] - t[:, end]
     return {
-        "case": label, "route": "walk", "n": total, "halo": halo, "ctas": G, "kernel_ms": ms,
+        "case": label, "n": total, "halo": halo, "ctas": G, "kernel_ms": ms,
         "untrusted_seams": fixup[0], "fixup_walks": fixup[1], "fixup_blocks": fixup[2],
         "cycles_total_median": float(np.median(t[:, end + 1] - t[:, 0])),
         "phase_cycles_median": {k: float(np.median(v)) for k, v in phases.items()},
         "sync_wait_cycles_median": {k: float(np.median(v)) for k, v in waits.items()},
         "speculative_walk_cycles_max": int(phases["speculative_walk"].max()),
         "fixup_cycles_cta0": int(phases["fixup"][0]),
-    }
-
-
-def rounds_record(stamped, plain, label: str, args: tuple) -> dict:
-    total, halo = args[0].shape[0], args[3]
-    capped = args[:-1] + (total - halo - 1,)  # one below the walk route's cap
-    ms = cs.kernel_device_ms(lambda: ak._launch(*capped), "rounds_kernel", reps=5)
-    stamped_run(stamped, plain, capped)
-    g = read(stamped.ms_read_stamps, SLOTS)
-    rounds = int(g[3])
-    return {
-        "case": label, "route": "rounds", "n": total, "halo": halo, "kernel_ms": ms,
-        "cycles": {"total": int(g[0]), "rolling_stats": int(g[1]), "rounds": int(g[2]),
-                   "run_sums": int(g[4])},
-        "round_count": rounds,
-        "round_cycles_first": g[8 : 8 + min(rounds, 8)].tolist(),
     }
 
 
@@ -221,7 +141,6 @@ def main() -> int:
     for label in cs.K1_CASES:
         args = cs.k1_args(label)
         print(json.dumps(walk_record(stamped, plain, label, args)), flush=True)
-        print(json.dumps(rounds_record(stamped, plain, label, args)), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
     return 0
