@@ -27,7 +27,10 @@ non-zero (there is no CPU fallback):
    profiler's device time of the kernel) and K2 (band power at the 24 h
    analyzer shape, with ``torch.matmul`` plus the same epilogue as a
    yardstick the port never calls; each the median of 60 CUDA-event
-   launches, with its share of the bound).
+   launches, with its share of the bound), and the DDC bank's rotation
+   (bit for bit against its a-loop twin on the card at the I/Q cell's
+   interior piece, 8 channels x 3 tap columns x 6.0e6 outputs, both
+   timed beside the bound).
 4. e2e           — G1: a 24 h, 6 kHz, int16 WAV with a 1 s 1003 Hz tone
    every 47 s and one on each of K1's chunk seams through
    ``apps.analyze.main`` (K1 launched once per chunk,
@@ -52,8 +55,9 @@ non-zero (there is no CPU fallback):
    station lines equal to the golden output's; on a 30 s cut the stages
    timed one by one and the card's events equal to the CPU's.
 9. e2e_frontend_iq — BASELINE config 4 at spec: 60 s of 2 MS/s I/Q, 8
-   stations, uploaded pre-framed, through ``channelize_iq_frames`` +
-   ``stream_front_headless`` + ``stream_scan_fused_batch`` (one K3 launch),
+   stations, uploaded pre-framed, through ``channelize_iq_frames`` (one
+   rotation launch) + ``stream_front_headless`` + ``stream_scan_fused_batch``
+   (one K3 launch),
    fused == scan bit for bit, pre-framed == flat events, every burst after
    the 8 s initial wait found; complex samples/s with and without the
    upload, profile rows and the bank GEMM's bound.
@@ -161,9 +165,9 @@ non-zero (there is no CPU fallback):
    keys of every key but image, each call captured as a CUDA graph and
    replayed k times, every gate true, the five ``chain_equals_eager``
    among them, nothing implausible; a line ``e2e_bench_chained`` with each
-   chained key's t1 / tk / chained / single-call ms and K1's and K3's
-   launches in the replays; its K1 and K3 launches, the replays' included,
-   added to the kernel records), then each timing tool of ``tools/``
+   chained key's t1 / tk / chained / single-call ms and each kernel's
+   launches in the replays; its K1, K3 and rotation launches, the replays'
+   included, added to the kernel records), then each timing tool of ``tools/``
    (``torch_streaming_bench``, ``torch_stations_bench``,
    ``torch_stations_breakdown``, ``torch_iq_breakdown``) once at a small
    size, its events check passed.
@@ -332,6 +336,11 @@ KERNELS = {
         route="cuda",
         source="meteor_scatter_tpu_torch/csrc/stream_machine.cu",
         replaces="meteor_scatter_tpu/ops/pallas/stream_kernel.py:56",
+    ),
+    "bank_rotate": dict(
+        route="cuda",
+        source="meteor_scatter_tpu_torch/csrc/bank_rotate.cu",
+        replaces="none: meteor_scatter_tpu/ops/fir.py::_bank_apply leaves it to XLA",
     ),
 }
 
@@ -862,6 +871,62 @@ def analyzer_day(tmp: str):
     return torch.from_numpy(pcm).to(DEVICE).to(torch.float32)
 
 
+# The DDC bank's rotation at the I/Q cell's interior piece (600 s at 2 MS/s,
+# q 200, 513 taps, 8 channels): C x A x n_out
+BANK_ROTATE_SHAPE = (8, 3, 6_000_000)
+
+
+def phase_kernel_bank_rotate() -> dict:
+    """The DDC bank's rotation (kernel) against its a-loop twin on the card,
+    bit for bit: at the I/Q cell's interior piece (:data:`BANK_ROTATE_SHAPE`,
+    the row phases column slices of wider tables, as the in-place route
+    passes them; timed) and on a planar (2, …) stack with one channel and
+    one tap column."""
+    import torch
+
+    from meteor_scatter_tpu_torch.ops.kernels import bank_kernel as rk
+
+    gen = torch.Generator(device=DEVICE).manual_seed(25)
+    cases = []
+    for label, (batch, (c_n, a_cols, n_out)) in (("cell_interior", ((), BANK_ROTATE_SHAPE)),
+                                                 ("planar_c1_a1", ((2,), (1, 1, 1000)))):
+        m = n_out + a_cols - 1
+        g = torch.randn(batch + (2, c_n, a_cols, m), device=DEVICE, generator=gen)
+        cr, sr = (torch.randn((c_n, m + 7), device=DEVICE, generator=gen)[:, 3 : 3 + m]
+                  for _ in range(2))
+        got = rk._launch(g, cr, sr, n_out)
+        want = rk.bank_rotate_plain(g, cr, sr, n_out)
+        torch.cuda.synchronize()
+        rows = math.prod(batch) * c_n
+        case = {
+            "case": label, "batch": list(batch), "C": c_n, "A": a_cols, "n_out": n_out,
+            "bit_exact": all(bits_equal(a, b) for a, b in zip(got, want)),
+            "max_abs_err": max(float((a - b).abs().max()) for a, b in zip(got, want)),
+            # G once, the row phases once, dc and ds; 6 flops a tap column an output
+            **bound(4 * (2 * rows * a_cols * n_out + 2 * c_n * m + 2 * rows * n_out),
+                    6.0 * rows * a_cols * n_out),
+        }
+        del got, want
+        if label == "cell_interior":
+            case["ms"] = cuda_ms(lambda: rk._launch(g, cr, sr, n_out), warmup=5,
+                                 reps=K2_TIMING_REPS)
+            case["plain_ms"] = cuda_ms(lambda: rk.bank_rotate_plain(g, cr, sr, n_out))
+            case["share_of_bound"] = case["bound_ms"] / case["ms"]
+        emit({"phase": "kernel_check", "kernel": "bank_rotate", **case})
+        cases.append(case)
+        del g, cr, sr
+    bad = [c["case"] for c in cases if not c["bit_exact"]]
+    if bad:
+        raise AssertionError(f"bank_rotate kernel is not bit-exact against its twin in {bad}")
+    main_shape = cases[0]
+    return {
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
+        "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
+        "library_ms": None,
+    }
+
+
 def phase_kernel_k2(x) -> dict:
     """K2 (kernel) against its twin on the card at the 24 h analyzer shape:
     432 000 frames read in place (row stride 1200, L = 1024), the 14-column
@@ -1192,9 +1257,10 @@ def phase_e2e_stations() -> dict:
 def zero_launch_counts() -> None:
     from meteor_scatter_tpu_torch.ops.kernels import adaptive_kernel as ak
     from meteor_scatter_tpu_torch.ops.kernels import bandpower_kernel as bk
+    from meteor_scatter_tpu_torch.ops.kernels import bank_kernel as rk
     from meteor_scatter_tpu_torch.ops.kernels import stream_kernel as sk
 
-    ak.launches = bk.launches = sk.launches = 0
+    ak.launches = bk.launches = sk.launches = rk.launches = 0
 
 
 STATION_LINE = re.compile(r"^station (\d+) \(.*?\): (\d+) events (\[.*?\]) \(truth: (\[.*\])\)$", re.M)
@@ -1374,8 +1440,8 @@ def phase_e2e_frontend_iq(iq: dict) -> dict:
     torch.cuda.synchronize()
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    if launches != {"adaptive_solver": 0, "bandpower": 0, "stream_machine": 1}:
-        raise AssertionError(f"frontend_iq launched {launches}, expected K3 once")
+    if launches != {"adaptive_solver": 0, "bandpower": 0, "stream_machine": 1, "bank_rotate": 1}:
+        raise AssertionError(f"frontend_iq launched {launches}, expected K3 and the rotation once")
 
     # --- the scan twin on the same series: bit for bit ---
     st_s, ev_s, thr_s = st.stream_scan(scfg, st0, on, pm)
@@ -1420,7 +1486,8 @@ def phase_e2e_frontend_iq(iq: dict) -> dict:
         "phase": "e2e_frontend_iq", "fs": fs, "seconds": IQ_SECONDS, "stations": len(freqs),
         "complex_samples": n, "frames": list(f.shape), "audio_rate": IQ_AUDIO_RATE,
         "blocks": int(on.shape[1]), "synth_s": synth_s, "frame_host_s": frame_s,
-        "launches": launches["stream_machine"], "peak_device_bytes": peak,
+        "launches": launches["stream_machine"], "bank_rotate_launches": launches["bank_rotate"],
+        "peak_device_bytes": peak,
         "events": int(counts.sum()), "bursts_missed": 0, "fused_equals_scan": True,
         "preframed_equals_flat": True,
         "pipeline_ms": ms, "complex_samples_per_s": n / (ms / 1e3),
@@ -2386,7 +2453,8 @@ def phase_e2e_multiproc(tmp: str, iq: dict, day_delta: np.ndarray) -> dict:
         unequal = sorted({k for arrays, _ in ranks for k, v in want.items()
                           if not bits_equal(torch.from_numpy(arrays[k]), v.cpu())})
         launches = [rec["a"]["launches"] for rec in recs]
-        if unequal or any(ln != {"adaptive_solver": 0, "bandpower": 0, "stream_machine": 2}
+        if unequal or any(ln != {"adaptive_solver": 0, "bandpower": 0, "stream_machine": 2,
+                                 "bank_rotate": 0}
                           for ln in launches) or bool(ev_u.overflow.any()):
             raise AssertionError(f"multiproc stations: leaves not bit-equal to the unsharded "
                                  f"solve {unequal[:6]}, launches {launches}")
@@ -3067,13 +3135,17 @@ BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "date", "multi8_samples_
               *torch_bench.CHAINED_RATES.values(),
               *(g for g in torch_bench.GATES if g != "stations_golden_G3"))  # G3: 600 s only
 # the chained keys (torch_bench.py's CUDA-graph replays): their artifact
-# prefix, and the K1 / K3 launches one replay must hold
+# prefix, and the launches of each kernel one replay must hold
 BENCH_CHAINED = {
-    "value": ("", {"adaptive_solver": 1, "bandpower": 0, "stream_machine": 0}),
-    "multi8": ("multi8_", {"adaptive_solver": 8, "bandpower": 0, "stream_machine": 0}),
-    "stations64": ("stations64_", {"adaptive_solver": 0, "bandpower": 0, "stream_machine": 1}),
-    "channelizer": ("channelizer_", {"adaptive_solver": 0, "bandpower": 0, "stream_machine": 0}),
-    "frontend_iq": ("frontend_iq_", {"adaptive_solver": 0, "bandpower": 0, "stream_machine": 1}),
+    "value": ("", {"adaptive_solver": 1, "bandpower": 0, "stream_machine": 0, "bank_rotate": 0}),
+    "multi8": ("multi8_", {"adaptive_solver": 8, "bandpower": 0, "stream_machine": 0,
+                           "bank_rotate": 0}),
+    "stations64": ("stations64_", {"adaptive_solver": 0, "bandpower": 0, "stream_machine": 1,
+                                   "bank_rotate": 0}),
+    "channelizer": ("channelizer_", {"adaptive_solver": 0, "bandpower": 0, "stream_machine": 0,
+                                     "bank_rotate": 1}),
+    "frontend_iq": ("frontend_iq_", {"adaptive_solver": 0, "bandpower": 0, "stream_machine": 1,
+                                     "bank_rotate": 1}),
 }
 BENCH_TOOLS = {
     "torch_streaming_bench": ["--hours", "0.05", "--reps", "3",
@@ -3091,12 +3163,12 @@ def last_json(text: str) -> dict:
 
 def phase_e2e_bench() -> dict:
     """``torch_bench.main(BENCH_ARGV)`` in this process, so that the launch
-    counts see its K1 and K3 launches: exit 0, every key of
+    counts see its kernels' launches: exit 0, every key of
     :data:`BENCH_KEYS`, every gate true (the five ``chain_equals_eager``
     among them), nothing implausible, K1 and K3 launched.  The chained keys
     replay CUDA graphs, which the wrappers' counts do not see: a line
     ``e2e_bench_chained`` prints per key ``chain_k``, ``t1_ms``, ``tk_ms``,
-    the chained and the single-call ms, and K1's and K3's launches in the
+    the chained and the single-call ms, and each kernel's launches in the
     replays, counted as the replays times the launches one capture recorded
     (the wrappers count a launch while a capture records it).  The phase's
     ``launches`` are then the eager launches (the counts less the captures')
@@ -3181,7 +3253,8 @@ def main() -> int:
     t_start = time.perf_counter()
     info = phase_device()
     phase_build()
-    records = {"adaptive_solver": phase_kernel_k1(), "stream_machine": phase_kernel_k3()}
+    records = {"adaptive_solver": phase_kernel_k1(), "stream_machine": phase_kernel_k3(),
+               "bank_rotate": phase_kernel_bank_rotate()}
     with tempfile.TemporaryDirectory() as host_tmp:
         with tempfile.TemporaryDirectory() as tmp:
             e2e = phase_e2e(tmp)
@@ -3220,7 +3293,8 @@ def main() -> int:
                 "bandpower": e2e_bp["launches"] + bench["bandpower"],
                 "stream_machine": e2e_live["launches"] + e2e_st["launches"] + e2e_fiq["launches"]
                 + e2e_mp["k3_launches_children"] + e2e_ep["k3_launches"]
-                + bench["stream_machine"]}
+                + bench["stream_machine"],
+                "bank_rotate": e2e_fiq["bank_rotate_launches"] + bench["bank_rotate"]}
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(nvidia_smi_line())
     emit({"kernels": [{"name": name, **KERNELS[name], "launches": launches[name], **records[name]}

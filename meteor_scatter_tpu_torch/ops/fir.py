@@ -15,7 +15,8 @@ polyphase-decimated to the analysis rate on the device.
   ``F.conv1d`` (a correlation, so the taps are passed reversed, as the
   reference passes them to ``conv_general_dilated``), ``polyphase_decimate``
   and the channel bank as one float32 ``torch.matmul`` at the output rate
-  plus a per-row phase rotation.  TF32 is off
+  plus a per-row phase rotation (one hand-written kernel on a card,
+  :mod:`meteor_scatter_tpu_torch.ops.kernels.bank_kernel`).  TF32 is off
   (:mod:`meteor_scatter_tpu_torch.device`), as the reference runs these at
   ``Precision.HIGHEST``.
 
@@ -42,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from meteor_scatter_tpu_torch.device import DeviceLike, resolve_device
+from meteor_scatter_tpu_torch.ops.kernels import bank_kernel
 from meteor_scatter_tpu_torch.utils.timing import span
 
 PLANS_KEPT = 2  # bank plans kept per process; 8 channels of a 600 s, 2 MS/s capture hold 384 MB
@@ -248,7 +250,9 @@ def _bank_apply(
     rotation, in the reference's operation order.
 
     dc = Σ_a cr·G_cos − sr·G_sin ; ds = Σ_a sr·G_cos + cr·G_sin
-    (angle addition: cos(r+b) = cr·cb − sr·sb, sin(r+b) = sr·cb + cr·sb).
+    (angle addition: cos(r+b) = cr·cb − sr·sb, sin(r+b) = sr·cb + cr·sb),
+    by :func:`~meteor_scatter_tpu_torch.ops.kernels.bank_kernel.bank_rotate`:
+    one kernel launch on a card, the a-loop on the CPU, the same bits.
     """
     batch = f.shape[:-2]
     m = f.shape[-2]
@@ -256,16 +260,7 @@ def _bank_apply(
     # (..., 2, C, A, m), so the rotation reads every tap column's rows at
     # unit stride (as (m, 2·C·A) they would lie 2·C·A floats apart)
     g = torch.matmul(hh.t(), f.transpose(-1, -2)).reshape(batch + (2, c_n, a_cols, m))
-    dc = f.new_zeros(batch + (c_n, n_out))
-    ds = torch.zeros_like(dc)
-    for a in range(a_cols):
-        gc = g[..., 0, :, a, a : a + n_out]  # (..., C, n_out)
-        gs = g[..., 1, :, a, a : a + n_out]
-        crs = cr[:, a : a + n_out]
-        srs = sr[:, a : a + n_out]
-        dc = dc + crs * gc - srs * gs
-        ds = ds + srs * gc + crs * gs
-    return dc, ds
+    return bank_kernel.bank_rotate(g, cr, sr, n_out)
 
 
 def _validated_int_rate_and_freqs(fs: float, center_freqs) -> Tuple[int, list]:

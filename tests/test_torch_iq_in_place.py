@@ -21,21 +21,8 @@ from meteor_scatter_tpu.ops import fir as jf
 from meteor_scatter_tpu_torch.apps import frontend
 from meteor_scatter_tpu_torch.ops import fir
 
+from test_torch_bank_rotate import BW, FREQS, FS, GEOMETRIES
 from test_torch_fir import REL_TOL, assert_bits_equal, assert_close_rel
-
-FS, BW = 48_000, 400.0
-FREQS = np.array([-12_000, -1003, 7777])  # negative centres: the lower half of the span
-
-# (n, q, taps) and what each geometry is there for; pl = (taps - 1) // 2
-GEOMETRIES = {
-    "pl_below_q": (4001, 200, 97),  # pl 48, A 1, a tail frame past n
-    "tail_inside_n": (4000, 200, 97),  # every frame past the head ends inside the capture
-    "pl_above_q": (4001, 10, 97),  # pl 48 over q 10: five head frames
-    "pl_multiple_of_q": (4000, 8, 97),  # pl 48 = 6 q
-    "cell_geometry": (6001, 200, 513),  # q 200, pl 256, A 3: the I/Q cell's split
-    "no_interior": (500, 200, 513),  # too short for an interior frame: one padded piece
-    "shorter_than_pl": (100, 8, 513),
-}
 
 
 def _geometry(n, q, taps):

@@ -23,8 +23,11 @@ episode-jump solvers (``impl="jump"`` / ``"hop"``) run K3 on the card and
 equal their lockstep loops on the card and on the CPU; past hop's record
 bound the lockstep hop runs on the card.  K1 (one chunk and the chunked
 detection), K3 and ``events_from_mask`` captured in a CUDA graph replay
-their eager launches' bits.  The build tests run anywhere: they stand in a
-fake ``nvcc``.
+their eager launches' bits.  The DDC bank's rotation kernel equals its
+a-loop twin run on the card bit for bit: over the in-place route's
+geometries (``tests/test_torch_bank_rotate.py``, which imports no JAX), the
+planar stack, a sharded bank and signed zeros, one launch a ``_bank_apply``.
+The build tests run anywhere: they stand in a fake ``nvcc``.
 """
 
 import functools
@@ -39,10 +42,15 @@ import torch
 from meteor_scatter_tpu_torch.models import adaptive as tad
 from meteor_scatter_tpu_torch.models import streaming as tst
 from meteor_scatter_tpu_torch.ops import bandpower as tbp
+from meteor_scatter_tpu_torch.ops import fir
 from meteor_scatter_tpu_torch.ops.kernels import _build
 from meteor_scatter_tpu_torch.ops.kernels import adaptive_kernel as tak
 from meteor_scatter_tpu_torch.ops.kernels import bandpower_kernel as tbk
+from meteor_scatter_tpu_torch.ops.kernels import bank_kernel as trk
 from meteor_scatter_tpu_torch.ops.kernels import stream_kernel as tsk
+
+from test_torch_bank_rotate import BW, FREQS, FS, GEOMETRIES, Rotations, emulate
+from test_torch_bank_rotate import interleaved_capture, signed_zero_case
 
 THR_ATOL = 1e-2
 CSM_RTOL = 1e-5
@@ -275,7 +283,7 @@ def test_build_command_and_cache_key(tmp_path, monkeypatch):
 
 
 def test_real_sources_are_shipped():
-    for name in ("adaptive_solver", "stream_machine", "bandpower"):
+    for name in ("adaptive_solver", "stream_machine", "bandpower", "bank_rotate"):
         assert (_build.CSRC / f"{name}.cu").is_file()
     assert os.path.basename(_build.BUILD_DIR) == "torch_kernels"
 
@@ -726,6 +734,127 @@ def test_bandpower_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         a[pos] = value
         with pytest.raises(ValueError):
             tbk._launch(*a)
+
+
+# ---- the DDC bank's rotation ---------------------------------------------------
+
+def assert_rotations_equal_loop(calls, launched):
+    """Each recorded rotation (the kernel's) against the loop run on the
+    card on the same operands, bit for bit; one launch a call."""
+    assert calls and launched == len(calls)
+    for (g, cr, sr, n_out), (dc, ds) in calls:
+        assert g.is_cuda
+        want_dc, want_ds = trk.bank_rotate_plain(g, cr, sr, n_out)
+        assert_bits_equal(dc, want_dc, "dc")
+        assert_bits_equal(ds, want_ds, "ds")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", list(GEOMETRIES))
+def test_bank_rotate_in_place_route_equals_loop(cuda, geometry, monkeypatch):
+    n, q, taps = GEOMETRIES[geometry]
+    plan, tables = fir.channel_bank_plan(n, FS, FREQS, BW, q, taps, device=cuda)
+    x = interleaved_capture(n, device=cuda)
+    assert fir.is_interleaved_iq(x[:, 0], x[:, 1])
+    calls = Rotations(monkeypatch)
+    before = trk.launches
+    fir.channelize_iq_interleaved(x[:, 0], tables, plan)
+    torch.cuda.synchronize()
+    assert_rotations_equal_loop(calls.calls, trk.launches - before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("taps", [97, 257, 513], ids=["A1", "A2", "A3"])
+@pytest.mark.parametrize("channels", [1, 8])
+def test_bank_rotate_planar_stack_equals_loop(cuda, channels, taps, monkeypatch):
+    """The planar route's (2, m, q) stack, q = 200: the rotation's batch of
+    two against the loop's broadcast of the row phases."""
+    freqs = np.arange(channels) * 5003 - 17011
+    x = interleaved_capture(6001, seed=channels, device=cuda)
+    calls = Rotations(monkeypatch)
+    before = trk.launches
+    fir.channelize_iq(x[:, 0].contiguous(), x[:, 1].contiguous(), FS, freqs, BW, 200, taps)
+    torch.cuda.synchronize()
+    (g, _, _, _), _ = calls.calls[0]
+    assert g.shape[:-1] == (2, 2, channels, -(-taps // 200))
+    assert_rotations_equal_loop(calls.calls, trk.launches - before)
+
+
+@pytest.mark.cuda
+def test_bank_rotate_sharded_frames_equal_loop(cuda, monkeypatch):
+    """The time-sharded pre-framed bank on a virtual 1 x 4 mesh of the card:
+    one rotation a shard at ``n_out_loc``, A = 5 (65 taps over 16)."""
+    from meteor_scatter_tpu_torch.parallel import mesh as tmesh
+    from meteor_scatter_tpu_torch.parallel import sharded as tsh
+
+    fs, q, taps, n_time = 64_000, 16, 65, 4
+    n = 4 * fs
+    centers = np.array([-18003.0, -8001.0, 5997.0, 14013.0])
+    x = interleaved_capture(n, seed=3).numpy()
+    plan, _ = fir.channel_bank_plan(n, fs, centers, 1500.0, q, taps, device="cpu")
+    f_sh = torch.from_numpy(fir.frame_capture_sharded_host(x.T.copy(), plan, n_time)).to(cuda)
+    mesh = tmesh.make_mesh(1, n_time, [cuda] * n_time)
+    calls = Rotations(monkeypatch)
+    before = trk.launches
+    tsh.sharded_channelize_iq_frames(f_sh, mesh, fs, centers, 1500.0, q, taps)
+    torch.cuda.synchronize()
+    assert len(calls.calls) == n_time
+    assert all(n_out == plan["n_out"] // n_time for (_, _, _, n_out), _ in calls.calls)
+    assert_rotations_equal_loop(calls.calls, trk.launches - before)
+
+
+@pytest.mark.cuda
+def test_bank_rotate_keeps_the_sign_of_zero(cuda):
+    """Operands from ±0 and a few exact values (``signed_zero_case``): the
+    kernel's bits are the loop's on the card and the float32 emulation's,
+    so a −0.0 product added to the +0.0 start gives +0.0, as in the loop."""
+    n_out = 2500
+    g, cr, sr, negative_zero = signed_zero_case(n_out)
+    assert negative_zero.any()
+    before = trk.launches
+    got = trk.bank_rotate(g.to(cuda), cr.to(cuda), sr.to(cuda), n_out)
+    assert trk.launches == before + 1
+    loop = trk.bank_rotate_plain(g.to(cuda), cr.to(cuda), sr.to(cuda), n_out)
+    for k, (a, b, e) in enumerate(zip(got, loop, emulate(g, cr, sr, n_out))):
+        assert_bits_equal(a, b, f"output {k}")
+        assert_bits_equal(a.cpu(), torch.from_numpy(e), f"output {k}")
+
+
+@pytest.mark.cuda
+def test_bank_apply_launches_once_a_call(cuda):
+    n, q, taps = GEOMETRIES["cell_geometry"]
+    plan, (hh, cr, sr) = fir.channel_bank_plan(n, FS, FREQS, BW, q, taps, device=cuda)
+    f = fir.frame_capture(interleaved_capture(n, device=cuda)[:, 0].contiguous(), plan)
+    for k in range(1, 4):
+        before = trk.launches
+        fir._bank_apply(f, hh, cr, sr, plan["c_n"], plan["a_cols"], plan["n_out"])
+        assert trk.launches == before + 1, k
+
+
+@pytest.mark.cuda
+def test_bank_rotate_rejects_what_the_kernel_does_not_take(cuda):
+    c_n, a_cols, n_out = 3, 3, 100
+    m = n_out + a_cols - 1
+    g = torch.randn((2, c_n, a_cols, m), device=cuda)
+    cr, sr = torch.randn((c_n, m), device=cuda), torch.randn((c_n, m), device=cuda)
+    bad = [
+        (0, g.double()),  # dtype
+        (0, g.transpose(-1, -2).contiguous().transpose(-1, -2)),  # not contiguous
+        (0, g.cpu()),  # device
+        (0, g[..., :-1].contiguous()),  # too few frame rows
+        (0, g[:1].contiguous()),  # no cos / sin halves
+        (1, cr.cpu()),  # row phases on another device
+        (1, cr.double()),
+        (1, torch.randn((m, c_n), device=cuda).t()),  # columns not unit-stride
+        (2, sr[:2]),  # too few channels
+    ]
+    before = trk.launches
+    for pos, value in bad:
+        args = [g, cr, sr, n_out]
+        args[pos] = value
+        with pytest.raises(ValueError):
+            trk._launch(*args)
+    assert trk.launches == before
 
 
 # ---------------------------------------------------------------------------

@@ -411,9 +411,11 @@ def launch_counts() -> dict:
     launch; the CPU's twins add none)."""
     from meteor_scatter_tpu_torch.ops.kernels import adaptive_kernel as ak
     from meteor_scatter_tpu_torch.ops.kernels import bandpower_kernel as bk
+    from meteor_scatter_tpu_torch.ops.kernels import bank_kernel as rk
     from meteor_scatter_tpu_torch.ops.kernels import stream_kernel as sk
 
-    return {"adaptive_solver": ak.launches, "bandpower": bk.launches, "stream_machine": sk.launches}
+    return {"adaptive_solver": ak.launches, "bandpower": bk.launches, "stream_machine": sk.launches,
+            "bank_rotate": rk.launches}
 
 
 def launches_of(fn, device: torch.device):
