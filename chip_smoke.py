@@ -1051,9 +1051,11 @@ def run_live_main(argv: list):
 def device_rows(prof) -> list:
     """(name, device ms, calls) of each kernel and copy in a profile, the
     largest first; device-side rows only (the CPU ops that launch them
-    carry the same time again)."""
+    carry the same time again, and so do the port's ``ms.*`` spans, which
+    the profiler also lays on the device's timeline)."""
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+            if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0
+            and not e.key.startswith("ms.")]
     return sorted(rows, key=lambda r: -r[1])
 
 

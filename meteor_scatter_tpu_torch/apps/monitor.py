@@ -43,7 +43,8 @@ from meteor_scatter_tpu_torch.io.native import NativeWavReader, PcmRing, WavPump
 from meteor_scatter_tpu_torch.io.png import colorize, upscale_to, write_png
 from meteor_scatter_tpu_torch.io.wavio import read_wav
 from meteor_scatter_tpu_torch.models.image import detect_and_cluster_bursts
-from meteor_scatter_tpu_torch.utils.timing import PhaseTimer
+from meteor_scatter_tpu_torch.utils.timing import PhaseTimer, span, wait
+
 
 class OffsetJournal:
     """Persisted stream offset for replayable sources: journaling the
@@ -200,6 +201,96 @@ class CommandSegmentSource:
         self._start()
 
 
+class SegmentMonitor:
+    """The body of the reference main loop (`prime_detection.py:174-247`)
+    for one segment, with the state a deployment carries from segment to
+    segment: the hourly ledger, the offset journal, the clock ``now_fn``
+    and the phase timer.  :meth:`step` runs one segment: the upload, the
+    detection step on ``device`` ("cuda" raises when no GPU is usable), the
+    counts to the host, the PNG copy of a segment with detections, the
+    offset journal and then the ledger add, printing the counts and the
+    phase times.  ``pngs_written`` counts the PNG copies."""
+
+    def __init__(
+        self,
+        cfg: MonitorConfig,
+        now_fn=datetime.now,
+        device: DeviceLike = "cuda",
+        source_id: Optional[str] = None,
+    ):
+        self.cfg = cfg
+        self.now_fn = now_fn
+        self.dev = resolve_device(device)
+        os.makedirs(cfg.spec_out_dir, exist_ok=True)
+        self.ledger = HourlyLedger(
+            cfg.csv_out_dir, save_interval_min=cfg.save_interval_min, now=now_fn()
+        )
+        self.offsets = OffsetJournal(cfg.csv_out_dir, source_id)
+        self.timer = PhaseTimer(log=True)
+        self.pngs_written = 0
+
+    def step(self, segment: np.ndarray, pos: Optional[int] = None):
+        """One segment of ``sample_rate * segment_len_sec`` samples: returns
+        the spectrogram image and the cluster buffer.  ``pos``, the source's
+        position after the segment, is journaled before the counts are
+        added (none for a source without a position)."""
+        cfg, timer = self.cfg, self.timer
+        with span("segment"):
+            timer.start("plot_spectrogram+detect")
+            with span("upload"), wait("segment_upload"):
+                audio = torch.from_numpy(np.asarray(segment, dtype=np.float32)).to(self.dev)
+            with span("detect"):
+                img, bursts = detect_and_cluster_bursts(
+                    audio,
+                    cfg.sample_rate,
+                    n_fft=cfg.n_fft,
+                    spec_cut_factor=cfg.spec_cut_factor,
+                    eps_px=cfg.cluster_epsilon,
+                    min_samples=cfg.cluster_min_samples,
+                    keypoint_mode=cfg.keypoint_mode,
+                )
+            with span("counts_to_host"):
+                # the counts and the display cut in one copy (vmin by its bits)
+                packed = torch.stack(
+                    [bursts.n_critical, bursts.n_non_critical, img.vmin.view(torch.int32)]
+                )
+                with wait("counts"):
+                    n_crit, n_non, vmin_bits = packed.cpu().numpy()
+            n_crit, n_non = int(n_crit), int(n_non)
+            timer.end("plot_spectrogram+detect")
+
+            print(f"Critical bursts this segment: {n_crit}")
+            print(f"Non-critical bursts this segment: {n_non}")
+
+            if n_crit + n_non > 0:
+                # copy of the detection spectrogram (prime_detection.py:198-203)
+                timer.start("write_png")
+                with span("write_png"):
+                    ts = self.now_fn().strftime("%Y%m%d-%H%M%S")
+                    path = os.path.join(cfg.spec_out_dir, f"{ts}-{n_crit}-{n_non}.png")
+                    with wait("image"):
+                        db = img.db.cpu().numpy()
+                    with span("encode"):
+                        vmin = float(vmin_bits.view(np.float32))
+                        write_png(path, upscale_to(colorize(db[::-1, :], vmin=vmin, vmax=40.0)))
+                    self.pngs_written += 1
+                timer.end("write_png")
+
+            # at-most-once accounting: the offset journals BEFORE the counts
+            # become durable, so a kill between the two loses at most this one
+            # segment's counts on resume (the reverse order would re-process
+            # and double-count it); the ledger's own journal makes the add
+            # crash-safe
+            timer.start("ledger")
+            with span("ledger"):
+                if pos is not None:
+                    with span("offsets"):
+                        self.offsets.save(pos)
+                self.ledger.add(n_crit, n_non, now=self.now_fn())
+            timer.end("ledger")
+        return img, bursts
+
+
 def run_monitor(
     source,
     cfg: MonitorConfig,
@@ -207,17 +298,15 @@ def run_monitor(
     now_fn=datetime.now,
     device: DeviceLike = "cuda",
 ) -> HourlyLedger:
-    """The reference main loop (`prime_detection.py:128-247`) with the
-    detection step on ``device`` ("cuda" raises when no GPU is usable).
-    Besides the reference's phases, the timer splits out the PNG writes
-    and the ledger's journal and flushes."""
-    dev = resolve_device(device)
-    os.makedirs(cfg.spec_out_dir, exist_ok=True)
-    ledger = HourlyLedger(
-        cfg.csv_out_dir, save_interval_min=cfg.save_interval_min, now=now_fn()
+    """The reference main loop (`prime_detection.py:128-247`): grab a
+    segment, check its length (rebuild the source on a short one), back off
+    on a grab error, and run :meth:`SegmentMonitor.step` on it.  Besides the
+    reference's phases, the timer splits out the PNG writes and the
+    ledger's journal and flushes."""
+    monitor = SegmentMonitor(
+        cfg, now_fn=now_fn, device=device, source_id=getattr(source, "source_id", None)
     )
-    offsets = OffsetJournal(cfg.csv_out_dir, getattr(source, "source_id", None))
-    timer = PhaseTimer(log=True)
+    timer = monitor.timer
     expected = cfg.sample_rate * cfg.segment_len_sec
     n = 0
 
@@ -240,51 +329,11 @@ def run_monitor(
                 continue
             break
         timer.end("grab_audio")
-
-        timer.start("plot_spectrogram+detect")
-        audio = torch.from_numpy(np.asarray(segment, dtype=np.float32)).to(dev)
-        img, bursts = detect_and_cluster_bursts(
-            audio,
-            cfg.sample_rate,
-            n_fft=cfg.n_fft,
-            spec_cut_factor=cfg.spec_cut_factor,
-            eps_px=cfg.cluster_epsilon,
-            min_samples=cfg.cluster_min_samples,
-            keypoint_mode=cfg.keypoint_mode,
-        )
-        n_crit = int(bursts.n_critical)
-        n_non = int(bursts.n_non_critical)
-        timer.end("plot_spectrogram+detect")
-
-        print(f"Critical bursts this segment: {n_crit}")
-        print(f"Non-critical bursts this segment: {n_non}")
-
-        if n_crit + n_non > 0:
-            # copy of the detection spectrogram (prime_detection.py:198-203)
-            timer.start("write_png")
-            ts = now_fn().strftime("%Y%m%d-%H%M%S")
-            path = os.path.join(cfg.spec_out_dir, f"{ts}-{n_crit}-{n_non}.png")
-            db = img.db.cpu().numpy()
-            write_png(
-                path,
-                upscale_to(colorize(db[::-1, :], vmin=float(img.vmin), vmax=40.0)),
-            )
-            timer.end("write_png")
-
-        # at-most-once accounting: the offset journals BEFORE the counts
-        # become durable, so a kill between the two loses at most this one
-        # segment's counts on resume (the reverse order would re-process
-        # and double-count it); the ledger's own journal makes the add
-        # crash-safe
-        timer.start("ledger")
-        if hasattr(source, "pos"):
-            offsets.save(source.pos)
-        ledger.add(n_crit, n_non, now=now_fn())
-        timer.end("ledger")
+        monitor.step(segment, getattr(source, "pos", None))
         n += 1
 
     print(timer.summary())
-    return ledger
+    return monitor.ledger
 
 
 def main(argv=None) -> int:

@@ -1,7 +1,8 @@
 """Hourly CSV ledger with daily rotation and crash-safe resume.
 
-The port's own copy of `meteor_scatter_tpu/io/ledger.py` (stdlib only; the
-port imports nothing of the JAX package), writing the same bytes.
+The port's own copy of `meteor_scatter_tpu/io/ledger.py` (the stdlib and
+the port's profiler spans, ``journal`` and ``flush``; the port imports
+nothing of the JAX package), writing the same bytes.
 
 The reference's durable state is daily CSVs named ``YYYYMMDD.csv`` with
 header ``Timestamp;Anzahl;Kritisch`` and one row per hour
@@ -19,6 +20,8 @@ import json
 import os
 from datetime import datetime, timedelta
 from typing import Optional
+
+from meteor_scatter_tpu_torch.utils.timing import span
 
 SEP = ";"
 COLUMNS = ["Timestamp", "Anzahl", "Kritisch"]
@@ -124,17 +127,18 @@ class HourlyLedger:
         if not self.journal_path:
             return
         tmp = self.journal_path + ".tmp"
-        with open(tmp, "w") as fh:
-            json.dump(
-                {
-                    "hour_start": self.hour_start.isoformat(),
-                    "critical": self.n_critical,
-                    "non_critical": self.n_non_critical,
-                    "date": self.previous_date,
-                },
-                fh,
-            )
-        os.replace(tmp, self.journal_path)
+        with span("journal"):
+            with open(tmp, "w") as fh:
+                json.dump(
+                    {
+                        "hour_start": self.hour_start.isoformat(),
+                        "critical": self.n_critical,
+                        "non_critical": self.n_non_critical,
+                        "date": self.previous_date,
+                    },
+                    fh,
+                )
+            os.replace(tmp, self.journal_path)
 
     # -- accumulation ------------------------------------------------------
 
@@ -166,10 +170,12 @@ class HourlyLedger:
         """Append the hourly row ``Timestamp;Anzahl;Kritisch``
         (`prime_detection.py:208-222`) and reset counts."""
         now = now or datetime.now()
-        path = self._ensure_file(self.hour_start)
-        ts = self.hour_start.strftime("%Y-%m-%d %H:%M:%S")
-        with open(path, "a") as fh:
-            fh.write(f"{ts}{SEP}{self.n_critical + self.n_non_critical}{SEP}{self.n_critical}\n")
+        with span("flush"):
+            path = self._ensure_file(self.hour_start)
+            ts = self.hour_start.strftime("%Y-%m-%d %H:%M:%S")
+            with open(path, "a") as fh:
+                total = self.n_critical + self.n_non_critical
+                fh.write(f"{ts}{SEP}{total}{SEP}{self.n_critical}\n")
         self.n_critical = 0
         self.n_non_critical = 0
         self.hour_start = now

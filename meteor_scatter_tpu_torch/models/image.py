@@ -40,7 +40,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from meteor_scatter_tpu_torch.device import constant_on
 from meteor_scatter_tpu_torch.ops.spectrogram import spectrogram_mpl
+from meteor_scatter_tpu_torch.utils.timing import span, wait
 
 # Reference rendering scale (detector_and_classification.py:73-78)
 _REF_PX_PER_SEC = 496.0 / 25.0
@@ -97,14 +99,14 @@ def spectrogram_image(
 
     nb = (freqs >= noise_floor_band[0]) & (freqs <= noise_floor_band[1])
     bandwidth = float(nb.sum()) * delta_f
-    nb_idx = torch.from_numpy(np.nonzero(nb)[0]).to(pxx.device)
+    nb_idx = constant_on(np.nonzero(nb)[0], pxx.device)
     # summed over freq AND time (:76)
     band_power = pxx.index_select(-2, nb_idx).sum(dim=(-2, -1))
     power_density_db_hz = 10.0 * torch.log10(band_power / bandwidth)
     vmin = power_density_db_hz / (40.0 / 23.0) + spec_cut_factor
 
     db_mask = np.nonzero((freqs >= display_band[0]) & (freqs <= display_band[1]))[0]
-    pxx_db = 10.0 * torch.log10(pxx.index_select(-2, torch.from_numpy(db_mask).to(pxx.device)))
+    pxx_db = 10.0 * torch.log10(pxx.index_select(-2, constant_on(db_mask, pxx.device)))
 
     return SpectrogramImage(
         db=pxx_db,
@@ -153,7 +155,8 @@ def _connected_components(mask: torch.Tensor) -> torch.Tensor:
     rounds, changed = 0, True
     while changed:
         new = _jump(neighbor_min(labels), hw)
-        changed = bool((new != labels).any())
+        with wait("label_round"):
+            changed = bool((new != labels).any())
         labels = new
         rounds += 1
     label_rounds["connected_components"] = rounds
@@ -221,7 +224,8 @@ def _cluster_core_labels(core: torch.Tensor, spans) -> torch.Tensor:
     rounds, changed = 0, True
     while changed:
         new = _jump(step(labels), hw)
-        changed = bool((new != labels).any())
+        with wait("label_round"):
+            changed = bool((new != labels).any())
         labels = new
         rounds += 1
     label_rounds["cluster_core_labels"] = rounds
@@ -255,7 +259,7 @@ def corner_keypoints(
 
     def conv2(x, kern):
         # cross-correlation with SAME padding, as XLA's conv_general_dilated
-        kt = torch.tensor(kern, dtype=torch.float32, device=x.device)[None, None]
+        kt = constant_on(np.asarray(kern, dtype=np.float32), x.device)[None, None]
         return F.conv2d(x.reshape(-1, 1, h, w), kt, padding=1).reshape(x.shape)
 
     sobel_x = [[-1.0, 0.0, 1.0], [-2.0, 0.0, 2.0], [-1.0, 0.0, 1.0]]
@@ -302,7 +306,7 @@ def _conv_count(x: torch.Tensor, kern: np.ndarray) -> torch.Tensor:
     static 0/1 stencil (neighbour counting).  Exact in float32: every sum
     is an integer below 2^24, whatever order the library sums in."""
     h, w = x.shape[-2:]
-    kt = torch.from_numpy(kern.astype(np.float32)).to(x.device)[None, None]
+    kt = constant_on(kern.astype(np.float32), x.device)[None, None]
     kh, kw = kern.shape
     y = F.conv2d(x.to(torch.float32).reshape(-1, 1, h, w), kt, padding=(kh // 2, kw // 2))
     return y.reshape(x.shape)
@@ -336,7 +340,8 @@ def cluster_bursts(
     ``core_gate=False`` keeps the legacy box dilation + post-hoc
     ``min_samples`` formulation."""
     if keypoint_mask is None:
-        mask = img.db > img.vmin[..., None, None]  # pixels visible after the cut
+        with span("keypoints"):
+            mask = img.db > img.vmin[..., None, None]  # pixels visible after the cut
     else:
         mask = keypoint_mask
     lead = mask.shape[:-2]
@@ -348,83 +353,98 @@ def cluster_bursts(
     px_t = img.hop_sec * _REF_PX_PER_SEC
     px_f = img.hz_per_bin * _REF_PX_PER_HZ
 
+    own = torch.arange(hw, dtype=torch.int32, device=dev)
+    flat_mask = mask.reshape(lead + (hw,))
     if core_gate:
         spans = _ellipse_spans(eps_px, px_f, px_t)
-        neigh = _conv_count(mask, _ellipse_kernel(eps_px, px_f, px_t))
-        core = mask & (neigh >= min_samples - 0.5)
-        labels = _cluster_core_labels(core, spans)
+        with span("core_count"):
+            neigh = _conv_count(mask, _ellipse_kernel(eps_px, px_f, px_t))
+            core = mask & (neigh >= min_samples - 0.5)
+        with span("core_labels"):
+            labels = _cluster_core_labels(core, spans)
+        with span("border"):
+            is_root, comp = _compact_ids(labels, own, cap)
+            # border keypoints join the lowest-id cluster with a core inside
+            # their exact L2 eps ellipse; the rest is DBSCAN noise
+            comp2d = comp.reshape(lead + (h, w))
+            core_comp = torch.where(core, comp2d, cap)
+            near = _ellipse_min(core_comp, spans, cap)
+            assign = torch.where(core, comp2d, near).reshape(lead + (hw,))
+            member = flat_mask & (assign < cap)
+            seg = torch.where(member, assign, cap)
     else:
-        # legacy eps/2 box radii (the round-1..4 dilation window)
-        eps_t_sec = (eps_px / 2.0) / _REF_PX_PER_SEC
-        eps_f_hz = (eps_px / 2.0) / _REF_PX_PER_HZ
-        rt = max(int(round(eps_t_sec / img.hop_sec)), 0)
-        rf = max(int(round(eps_f_hz / img.hz_per_bin)), 0)
-        core = mask
-        dilated = _pool_max(mask.to(torch.float32), 2 * rf + 1, 2 * rt + 1) > 0
-        labels = _connected_components(dilated)
+        with span("components"):
+            # legacy eps/2 box radii (the round-1..4 dilation window)
+            eps_t_sec = (eps_px / 2.0) / _REF_PX_PER_SEC
+            eps_f_hz = (eps_px / 2.0) / _REF_PX_PER_HZ
+            rt = max(int(round(eps_t_sec / img.hop_sec)), 0)
+            rf = max(int(round(eps_f_hz / img.hz_per_bin)), 0)
+            dilated = _pool_max(mask.to(torch.float32), 2 * rf + 1, 2 * rt + 1) > 0
+            labels = _connected_components(dilated)
+            is_root, comp = _compact_ids(labels, own, cap)
+            member = flat_mask
+            seg = torch.where(member, comp, cap)
+    with span("boxes"):
+        seg = seg.to(torch.int64)
+        n_points = torch.zeros(lead + (cap + 1,), dtype=torch.int32, device=dev).scatter_add_(
+            -1, seg, member.to(torch.int32)
+        )[..., :cap]
 
-    # compact cluster ids from root pixels
-    flat_lab = labels.reshape(lead + (hw,))
-    own = torch.arange(hw, dtype=torch.int32, device=dev)
+        fi = own // w
+        ti = own % w
+        t_min = _segment_reduce(torch.where(member, ti, w), seg, cap + 1, "amin",
+                                _INT32_MAX)[..., :cap]
+        t_max = _segment_reduce(torch.where(member, ti, -1), seg, cap + 1, "amax",
+                                _INT32_MIN)[..., :cap]
+        f_min = _segment_reduce(torch.where(member, fi, h), seg, cap + 1, "amin",
+                                _INT32_MAX)[..., :cap]
+        f_max = _segment_reduce(torch.where(member, fi, -1), seg, cap + 1, "amax",
+                                _INT32_MIN)[..., :cap]
+
+        # DBSCAN noise rule: under core gating a cluster is one core component
+        # (≥ 1 member); the legacy path keeps the post-hoc size filter
+        valid = n_points >= (1 if core_gate else min_samples)
+        # critical: bbox duration >= 0.5 s (5 reference px), evaluated in seconds;
+        # the empty slots' int32 identities wrap as in the reference
+        min_dur_sec = critical_min_width_px / _REF_PX_PER_SEC
+        width_sec = (t_max - t_min).to(torch.float32) * img.hop_sec
+        critical = valid & (width_sec >= min_dur_sec)
+
+        n_clusters = valid.sum(-1, dtype=torch.int32)
+        n_crit = critical.sum(-1, dtype=torch.int32)
+        # background carries label HW (never a root), so is_root counts exactly
+        # the labelled components; any beyond cap landed in the drop bucket
+        n_components_total = is_root.sum(-1, dtype=torch.int32)
+
+        bursts = ImageBursts(
+            t_min=t_min,
+            t_max=t_max,
+            f_min=f_min,
+            f_max=f_max,
+            n_points=torch.where(valid, n_points, 0),
+            critical=critical,
+            count=n_clusters,
+            n_critical=n_crit,
+            n_non_critical=n_clusters - n_crit,
+            overflow=n_components_total > cap,
+        )
+    return bursts
+
+
+def _compact_ids(labels: torch.Tensor, own: torch.Tensor, cap: int):
+    """Compact cluster ids from root pixels: (is_root, the (..., hw)
+    cluster id of every pixel, ``cap`` past the capacity and off the
+    clusters)."""
+    hw = own.shape[0]
+    flat_lab = labels.reshape(labels.shape[:-2] + (hw,))
     is_root = flat_lab == own
     comp_at_root = torch.cumsum(is_root.to(torch.int32), dim=-1, dtype=torch.int32) - 1
     root_table = torch.where(is_root, comp_at_root, cap).to(torch.int32)
-    root_table = torch.cat([root_table, root_table.new_full(lead + (1,), cap)], dim=-1)
+    root_table = torch.cat([root_table, root_table.new_full(root_table.shape[:-1] + (1,), cap)],
+                           dim=-1)
     comp = root_table.gather(-1, torch.clamp(flat_lab, max=hw).to(torch.int64))
-    comp = torch.clamp(comp, max=cap)  # clusters beyond capacity land in the drop bucket
-
-    flat_mask = mask.reshape(lead + (hw,))
-    if core_gate:
-        # border keypoints join the lowest-id cluster with a core inside
-        # their exact L2 eps ellipse; the rest is DBSCAN noise
-        comp2d = comp.reshape(lead + (h, w))
-        core_comp = torch.where(core, comp2d, cap)
-        near = _ellipse_min(core_comp, spans, cap)
-        assign = torch.where(core, comp2d, near).reshape(lead + (hw,))
-        member = flat_mask & (assign < cap)
-        seg = torch.where(member, assign, cap)
-    else:
-        member = flat_mask
-        seg = torch.where(member, comp, cap)
-    seg = seg.to(torch.int64)
-    n_points = torch.zeros(lead + (cap + 1,), dtype=torch.int32, device=dev).scatter_add_(
-        -1, seg, member.to(torch.int32)
-    )[..., :cap]
-
-    fi = own // w
-    ti = own % w
-    t_min = _segment_reduce(torch.where(member, ti, w), seg, cap + 1, "amin", _INT32_MAX)[..., :cap]
-    t_max = _segment_reduce(torch.where(member, ti, -1), seg, cap + 1, "amax", _INT32_MIN)[..., :cap]
-    f_min = _segment_reduce(torch.where(member, fi, h), seg, cap + 1, "amin", _INT32_MAX)[..., :cap]
-    f_max = _segment_reduce(torch.where(member, fi, -1), seg, cap + 1, "amax", _INT32_MIN)[..., :cap]
-
-    # DBSCAN noise rule: under core gating a cluster is one core component
-    # (≥ 1 member); the legacy path keeps the post-hoc size filter
-    valid = n_points >= (1 if core_gate else min_samples)
-    # critical: bbox duration >= 0.5 s (5 reference px), evaluated in seconds;
-    # the empty slots' int32 identities wrap as in the reference
-    min_dur_sec = critical_min_width_px / _REF_PX_PER_SEC
-    width_sec = (t_max - t_min).to(torch.float32) * img.hop_sec
-    critical = valid & (width_sec >= min_dur_sec)
-
-    n_clusters = valid.sum(-1, dtype=torch.int32)
-    n_crit = critical.sum(-1, dtype=torch.int32)
-    # background carries label HW (never a root), so is_root counts exactly
-    # the labelled components; any beyond cap landed in the drop bucket
-    n_components_total = is_root.sum(-1, dtype=torch.int32)
-
-    return ImageBursts(
-        t_min=t_min,
-        t_max=t_max,
-        f_min=f_min,
-        f_max=f_max,
-        n_points=torch.where(valid, n_points, 0),
-        critical=critical,
-        count=n_clusters,
-        n_critical=n_crit,
-        n_non_critical=n_clusters - n_crit,
-        overflow=n_components_total > cap,
-    )
+    # clusters beyond capacity land in the drop bucket
+    return is_root, torch.clamp(comp, max=cap)
 
 
 def detect_and_cluster_bursts(
@@ -444,8 +464,12 @@ def detect_and_cluster_bursts(
 
     ``keypoint_mode``: "threshold" (default — above-cut pixels) or
     "corner" (Harris corner keypoints, the ORB-like mode)."""
-    img = spectrogram_image(audio, fs, n_fft, spec_cut_factor)
-    kp = corner_keypoints(img) if keypoint_mode == "corner" else None
+    with span("spectrogram"):
+        img = spectrogram_image(audio, fs, n_fft, spec_cut_factor)
+    kp = None
+    if keypoint_mode == "corner":
+        with span("keypoints"):
+            kp = corner_keypoints(img)
     bursts = cluster_bursts(
         img, eps_px=eps_px, min_samples=min_samples, cap=cap, keypoint_mask=kp,
         core_gate=core_gate,

@@ -24,6 +24,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from meteor_scatter_tpu_torch.device import constant_on
 from meteor_scatter_tpu_torch.ops.framing import frame_signal
 from meteor_scatter_tpu_torch.ops.window import hann_periodic, hann_symmetric
 
@@ -41,14 +42,14 @@ def _stft_psd(
     seg = frame_signal(x.to(torch.float32), nperseg, hop)
     if detrend_constant:
         seg = seg - seg.mean(dim=-1, keepdim=True)
-    X = torch.fft.rfft(seg * torch.from_numpy(win.astype(np.float32)).to(x.device), n=nfft, dim=-1)
+    X = torch.fft.rfft(seg * constant_on(win.astype(np.float32), x.device), n=nfft, dim=-1)
     p = (X.real * X.real + X.imag * X.imag) / (fs * float(np.sum(win.astype(np.float64) ** 2)))
     nbins = nfft // 2 + 1
     scale = np.ones(nbins, dtype=np.float32) * 2.0
     scale[0] = 1.0
     if nfft % 2 == 0:
         scale[-1] = 1.0
-    return p * torch.from_numpy(scale).to(x.device)
+    return p * constant_on(scale, x.device)
 
 
 def spectrogram_scipy(
